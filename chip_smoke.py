@@ -8,25 +8,42 @@ Phases, one line each, with their seconds:
 
 1. device   the card's name, the device count, nvidia-smi's name and power
             limit; exits non-zero without a card.
-2. build    every CUDA kernel of the main path, compiled with nvcc from
-            gnss_sdr_tpu_torch/csrc into build/kernels (the -Xptxas -v
-            register / shared-memory report is printed).
+2. build    every CUDA kernel, compiled with nvcc from gnss_sdr_tpu_torch/csrc
+            into build/kernels, one nvcc per source started together (the
+            -Xptxas -v register / shared-memory report is printed).
 3. K1       the epoch multicorrelator kernel against its plain PyTorch
             version on the same card tensors, at four shapes: (a) the GPS L1
-            main path C=8, K=3, n_max=2064, Lt=1023; (b) C=128; (c) BOC
+            tracking shape C=8, K=3, n_max=2064, Lt=1023; (b) C=128; (c) BOC
             table_rate=2, K=5, Lt=8184; (d) channels with n_samp=0. Fails
             beyond rtol 2e-4 / atol 2e-3 (the tolerance of
             tests/test_correlator.py).
-4. timing   K1 and its plain version at shapes (a) and (b), CUDA events over
-            1000 launches each after a warm-up, in turns (plain, kernel,
-            kernel, plain), beside the bound computed from the shapes.
-5. main     the port's receiver on a generated 28 s, 6-satellite, 47 dB-Hz
+4. K2       the fused tracking kernel against its plain version (the eager
+            loop with the plain correlator) from the same carry on the same
+            chunk: the open-loop handoff of 5 satellites on 6 channels, plain
+            and with extended integration + a secondary code (102 steps,
+            pull-in reaching WIDE at step 100), and a dispatch of 16 chunks
+            (1602 steps); after the main phase, the receiver's final carry
+            (channels in NARROW_TRACK). Packed int32 columns, valid, the loss
+            flag and the carry's int / bool fields equal; float columns and
+            float carry fields within rtol 1e-4 / atol 1e-4; the prompt
+            within |dz| <= 1e-4 |z| + 1e-4 (tests/test_torch_tracking.py's
+            tolerances).
+5. timing   K1 and its plain version at shapes (a) and (b), CUDA events over
+            500 launches each after a warm-up, in turns (plain, kernel,
+            kernel, plain), beside the bound computed from the shapes; K2
+            per 100 ms chunk at C=8 and C=128, in turns with the eager loop
+            on the plain correlator and the eager loop on K1, beside K2's
+            bound.
+6. main     the port's receiver on a generated 28 s, 6-satellite, 47 dB-Hz
             GPS L1 C/A scenario at 2 MSps (seed 123): all satellites tracked,
             ephemerides decoded, fixes within 2D < 2 m / 3D < 5 m of the
-            truth, and the correlator kernel launched once per tracking step;
-            with the host seconds of each receiver stage.
-6. profile  the tracking loop on the receiver's final carry: host and device
-            ms per 100 ms chunk (torch.profiler), the device's busy share.
+            truth, one K2 launch per tracking dispatch and no K1 launch;
+            with the host seconds of each receiver stage. Then the streaming
+            configuration (dispatch_chunks=16, upload_bits=4,
+            pipeline_depth=4) on the first 12 s: every satellite tracked.
+7. profile  the receiver's own dispatch on its final carry: host and device
+            ms per 100 ms chunk (torch.profiler), the device's busy share,
+            device operations per chunk, K2's share of the device time.
 
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit, then the result line. Float32 matrix products run in
@@ -229,6 +246,234 @@ def phase_timing(device, correlator, smi: str) -> dict:
     return results
 
 
+# --------------------------------------------------------------------- K2 ---
+K2_RTOL, K2_ATOL = 1e-4, 1e-4
+# float ops of the loop update per channel and step (discriminators, loop
+# filters, C/N0, NCO advance; a count of tracking.py's step, rounded up)
+K2_UPDATE_FLOPS = 150
+
+
+def _tensor(a, device):
+    return None if a is None else torch.from_numpy(a).to(device)
+
+
+def k2_case(device, **kw) -> tuple:
+    """(cfg, chunk, carry, tables, sec) of the port's open-loop handoff
+    (gnss_sdr_tpu_torch.utils.scenario.tracking_handoff_case) on device."""
+    from gnss_sdr_tpu_torch.utils import scenario
+
+    c = scenario.tracking_handoff_case(device, **kw)
+    return (c["cfg"], _tensor(c["chunk"], device), c["state"],
+            _tensor(c["tables"], device), _tensor(c["sec"], device))
+
+
+def _carry_leaves(state):
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    st = trk.state_to_numpy(state)
+    for name in trk.TrackingState._fields:
+        v = getattr(st, name)
+        if name in ("dll", "pll", "cn0"):
+            for sub, x in zip(v._fields, v):
+                yield f"{name}.{sub}", x
+        else:
+            yield name, v
+
+
+def _tol_ratio(a, b) -> float:
+    """max |a - b| / (atol + rtol |b|): at most 1 where the two agree."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if not a.size:
+        return 0.0
+    return float((np.abs(a - b) / (K2_ATOL + K2_RTOL * np.abs(b))).max())
+
+
+def _abs_err(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max()) if a.size else 0.0
+
+
+def k2_compare(packed, ref_packed, state, ref_state) -> dict:
+    """Hold K2's packed outputs and new carry against the plain version's."""
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    f, i32, lol = trk.unpack_host_outputs(packed.cpu().numpy())
+    rf, ri32, rlol = trk.unpack_host_outputs(ref_packed.cpu().numpy())
+    bad = []
+    if not np.array_equal(i32, ri32):
+        bad.append(f"int columns (step, channel, column) "
+                   f"{np.argwhere(i32 != ri32)[:3].tolist()}")
+    if not np.array_equal(lol, rlol):
+        bad.append("loss flag")
+    if not np.array_equal(f[..., 8], rf[..., 8]):
+        bad.append("valid")
+    float_ratio = _tol_ratio(f[..., 2:8], rf[..., 2:8])
+    z, rz = f[..., 0] + 1j * f[..., 1], rf[..., 0] + 1j * rf[..., 1]
+    dz = np.abs(z - rz)
+    prompt_ratio = float((dz / (K2_ATOL + K2_RTOL * np.abs(rz))).max())
+    # the largest absolute difference of any compared float: the prompt, the
+    # float columns and every float field of the carry
+    abs_err = max(float(dz.max()), _abs_err(f[..., 2:8], rf[..., 2:8]))
+    for (name, a), (_, b) in zip(_carry_leaves(state),
+                                 _carry_leaves(ref_state)):
+        if a.dtype.kind in "biu":
+            if not np.array_equal(a, b):
+                bad.append(f"carry {name}")
+        else:
+            r = _tol_ratio(a, b)
+            float_ratio = max(float_ratio, r)
+            abs_err = max(abs_err, _abs_err(a, b))
+            if not r <= 1.0:
+                bad.append(f"carry {name}")
+    if not float_ratio <= 1.0:
+        bad.append("float columns")
+    if not prompt_ratio <= 1.0:
+        bad.append("prompt")
+    return dict(max_abs_err=abs_err, prompt_abs_err=float(dz.max()),
+                prompt_tol_ratio=prompt_ratio, float_tol_ratio=float_ratio,
+                valid=int((f[..., 8] > 0.5).sum()), bad=bad)
+
+
+def phase_k2_case(name: str, device, cfg, chunk, state, tables, sec) -> dict:
+    """K2 (track_chunk_packed on the card) against the eager loop with the
+    plain correlator, from the same carry; returns k2_compare's readings."""
+    from gnss_sdr_tpu_torch.ops import correlator
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    t0 = time.perf_counter()
+    new, packed = trk.track_chunk_packed(cfg, chunk, state, tables, sec)
+    ref_state, out = trk.track_chunk(
+        cfg, chunk, state, tables, sec,
+        correlate=correlator.epoch_correlate_plain)
+    ref = trk.pack_host_outputs(out, ref_state.loss_of_lock)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    r = k2_compare(packed, ref, new, ref_state)
+    # beside the tolerances: whether K2 gave the plain version's very bits
+    bitwise = (torch.equal(packed.view(torch.int32), ref.view(torch.int32))
+               and torch.equal(tk.pack_carry(new), tk.pack_carry(ref_state)))
+    states = np.bincount(state.state.cpu().numpy(), minlength=4).tolist()
+    _line("K2", t0, case=name, C=int(tables.shape[0]), steps=cfg.n_steps,
+          valid_epochs=r["valid"], start_states=states,
+          end_states=np.bincount(new.state.cpu().numpy(),
+                                 minlength=4).tolist(),
+          max_abs_err=f"{r['max_abs_err']:.3e}",
+          prompt_max_abs_err=f"{r['prompt_abs_err']:.3e}",
+          prompt_tol_ratio=f"{r['prompt_tol_ratio']:.3e}",
+          float_tol_ratio=f"{r['float_tol_ratio']:.3e}",
+          bitwise=bitwise, ok=not r["bad"])
+    if r["bad"]:
+        raise SystemExit(f"K2 disagrees with its plain version at {name}: "
+                         f"{r['bad']}")
+    return r
+
+
+def _worst(a: dict | None, b: dict) -> dict:
+    """The larger error and tolerance ratio of two cases' readings."""
+    keys = ("max_abs_err", "float_tol_ratio", "prompt_tol_ratio")
+    return {k: max(b[k], a[k] if a else 0.0) for k in keys}
+
+
+def phase_k2(device, with_k16: bool) -> dict:
+    worst = None
+    for name, kw in (("plain", {}), ("extended", dict(extended=True)),
+                     ("k16", dict(chunks=16))):
+        if name == "k16" and not with_k16:
+            continue
+        worst = _worst(worst, phase_k2_case(name, device,
+                                            *k2_case(device, **kw)))
+    return worst
+
+
+def k2_work(cfg, out, n_ch: int, table_len: int, width: int) -> tuple:
+    """(bytes, flops) one K2 launch needs on these inputs, from the plain
+    version's outputs: the union of the epoch windows read once, the code
+    tables, the carry in and out and the packed outputs; per valid sample
+    the multicorrelator's 16 + 6K float ops (k1_work), per valid epoch
+    K2_UPDATE_FLOPS."""
+    valid = out.valid.cpu().numpy()
+    start = out.start_offset.cpu().numpy().astype(np.int64)[valid]
+    ns = out.n_samples.cpu().numpy().astype(np.int64)[valid]
+    length = cfg.chunk_len + cfg.n_max
+    covered = np.zeros(length + 1, np.int64)
+    np.add.at(covered, np.clip(start, 0, length), 1)
+    np.add.at(covered, np.clip(start + ns, 0, length), -1)
+    window = int(np.count_nonzero(np.cumsum(covered)[:length]))
+    n_taps = len(cfg.tap_offsets)
+    nbytes = (window * 8 + n_ch * table_len * 4 + 2 * n_ch * width * 4
+              + cfg.n_steps * n_ch * 13 * 4)
+    flops = float(ns.sum()) * (16 + 6 * n_taps) + valid.sum() * K2_UPDATE_FLOPS
+    return float(nbytes), float(flops)
+
+
+def phase_timing_k2(device, smi: str) -> dict:
+    """K2 per 100 ms chunk at C=8 and C=128: the raw launch in turns with
+    the eager loop on the plain correlator and on K1 (both host-bound: one
+    call each per turn)."""
+    from gnss_sdr_tpu_torch.ops import correlator
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    results = {}
+    for n_ch in (8, 128):
+        t0 = time.perf_counter()
+        cfg, chunk, state, tables, _ = k2_case(device, n_channels=n_ch)
+        carry = tk.pack_carry(state)
+        carry_out = torch.empty_like(carry)
+        packed = torch.empty((cfg.n_steps, n_ch, tk.PACKED_COLS),
+                             dtype=torch.float32, device=device)
+
+        kargs = tk.kernel_args(cfg, chunk, carry, tables, None, carry_out,
+                               packed)
+
+        def kernel():
+            tk.launch_kernel(kargs)
+
+        def plain():
+            st, o = trk.track_chunk(cfg, chunk, state, tables,
+                                    correlate=correlator.epoch_correlate_plain)
+            trk.pack_host_outputs(o, st.loss_of_lock)
+
+        def eager_k1():
+            st, o = trk.track_chunk(cfg, chunk, state, tables)
+            trk.pack_host_outputs(o, st.loss_of_lock)
+
+        def wrapper():
+            trk.track_chunk_packed(cfg, chunk, state, tables)
+
+        _time_ms(kernel, 3)                               # warm-up
+        for fn in (plain, eager_k1, wrapper):
+            _time_ms(fn, 1)
+        p1 = _time_ms(plain, 1)
+        k_a = _time_ms(kernel, 20)
+        k_b = _time_ms(kernel, 20)
+        p2 = _time_ms(plain, 1)
+        e1 = _time_ms(eager_k1, 1)
+        e2 = _time_ms(eager_k1, 1)
+        w = _time_ms(wrapper, 20)
+        _, out = trk.track_chunk(cfg, chunk, state, tables,
+                                 correlate=correlator.epoch_correlate_plain)
+        nbytes, flops = k2_work(cfg, out, n_ch, tables.shape[1],
+                                carry.shape[1])
+        t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+        r = dict(ms=(k_a + k_b) / 2, plain_ms=(p1 + p2) / 2,
+                 eager_k1_ms=(e1 + e2) / 2, wrapper_ms=w,
+                 bound_ms=max(t_bytes, t_flops) * 1e3,
+                 bound_by="bytes" if t_bytes >= t_flops else "operations")
+        results[n_ch] = r
+        _line("timing", t0, shape=f"k2_c{n_ch}", steps=cfg.n_steps,
+              kernel_ms=f"{r['ms']:.4f}",
+              kernel_turns_ms=f"{k_a:.4f}/{k_b:.4f}",
+              wrapper_ms=f"{w:.4f}",
+              eager_plain_ms=f"{r['plain_ms']:.3f}",
+              eager_plain_turns_ms=f"{p1:.3f}/{p2:.3f}",
+              eager_k1_ms=f"{r['eager_k1_ms']:.3f}",
+              bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
+              bytes=int(nbytes), flops=int(flops), card=f'"{smi}"')
+    return results
+
+
 # ------------------------------------------------------------- main path ---
 def _timed(rx, names, acc: dict) -> None:
     """Accumulate the host seconds spent in each named receiver method (an
@@ -246,8 +491,10 @@ def _timed(rx, names, acc: dict) -> None:
         setattr(rx, name, wrapper)
 
 
-def phase_main(device, correlator, duration_s: float, check_fix: bool) -> dict:
+def phase_main(device, duration_s: float, check_fix: bool) -> dict:
     from gnss_sdr_tpu_torch.io.sources import ArraySignalSource
+    from gnss_sdr_tpu_torch.ops import correlator
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
     from gnss_sdr_tpu_torch.receiver.pvt import geodesy
     from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
     from gnss_sdr_tpu_torch.utils import scenario
@@ -267,26 +514,28 @@ def phase_main(device, correlator, duration_s: float, check_fix: bool) -> dict:
         torch.cuda.synchronize()
     rx = Receiver(cfg, device=device)
     # where the wall time goes: upload, acquisition, enqueueing the tracking
-    # loop, waiting for its packed outputs (finish minus consume), the host
-    # telemetry consume, observables + PVT
+    # dispatch, waiting for its packed outputs (finish minus consume), the
+    # host telemetry consume, observables + PVT
     spent: dict = {}
     _timed(rx, ("_upload", "_run_acquisition", "_dispatch_tracking",
                 "_finish_tracking", "_consume_tracking", "_run_observables"),
            spent)
     correlator.launches = 0
+    tk.launches = 0
     rx.run_source(ArraySignalSource(x, FS))
     if device.type == "cuda":
         torch.cuda.synchronize()
-    launches = correlator.launches
+    k1, k2 = correlator.launches, tk.launches
     wall = time.perf_counter() - t0
     tracked = sorted(rx.tracked_prns())
     peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
             else "not measured")
     _line("main", t0, step="receiver", wall_s=f"{wall:.3f}",
           realtime_x=f"{duration_s / wall:.3f}", tracked=tracked,
-          scan_steps=rx.scan_steps, k1_launches=launches,
-          max_memory_allocated=peak)
+          scan_steps=rx.scan_steps, dispatches=rx.tracking_dispatches,
+          k2_launches=k2, k1_launches=k1, max_memory_allocated=peak)
     wait = spent["_finish_tracking"] - spent["_consume_tracking"]
+    n_disp = max(rx.tracking_dispatches, 1)
     _line("main", t0, step="breakdown",
           upload_s=f"{spent['_upload']:.3f}",
           acquisition_s=f"{spent['_run_acquisition']:.3f}",
@@ -294,12 +543,15 @@ def phase_main(device, correlator, duration_s: float, check_fix: bool) -> dict:
           tracking_wait_s=f"{wait:.3f}",
           telemetry_consume_s=f"{spent['_consume_tracking']:.3f}",
           observables_pvt_s=f"{spent['_run_observables']:.3f}",
-          enqueue_us_per_step=f"{spent['_dispatch_tracking'] / max(rx.scan_steps, 1) * 1e6:.1f}")
+          enqueue_us_per_dispatch=f"{spent['_dispatch_tracking'] / n_disp * 1e6:.1f}",
+          enqueue_us_per_step=f"{spent['_dispatch_tracking'] / max(rx.scan_steps, 1) * 1e6:.3f}")
     if tracked != sorted(sc.prns):
         raise SystemExit(f"tracked {tracked}, expected {sorted(sc.prns)}")
-    if device.type == "cuda" and not (launches == rx.scan_steps > 0):
-        raise SystemExit(f"K1 launches {launches} != scan steps "
-                         f"{rx.scan_steps}")
+    if device.type == "cuda" and not (k2 == rx.tracking_dispatches > 0
+                                      and k1 == 0):
+        raise SystemExit(f"K2 launches {k2} != dispatches "
+                         f"{rx.tracking_dispatches}, or K1 launched {k1} "
+                         f"times on the main path")
     if check_fix:
         ephs = rx.ephemerides
         bad = [prn for (_, prn), e in ephs.items()
@@ -319,28 +571,70 @@ def phase_main(device, correlator, duration_s: float, check_fix: bool) -> dict:
             raise SystemExit(f"ephemerides: {len(ephs)} decoded, bad {bad}")
         if not (err_2d < 2.0 and err_3d < 5.0):
             raise SystemExit(f"fix error 2D {err_2d:.2f} m / 3D {err_3d:.2f} m")
-    return dict(launches=launches, wall_s=wall, rx=rx, x=x)
+    return dict(k1_launches=k1, k2_launches=k2, wall_s=wall, rx=rx, x=x,
+                prns=sorted(sc.prns))
 
 
-def phase_profile(rx, x: np.ndarray, n_chunks: int = 5) -> None:
-    """Device view of the main path's tracking loop: ``n_chunks`` dispatches
-    of the receiver's own loop on its final carry (as the last dispatch saw
-    it), timed by the host clock, then once more under torch.profiler for
-    the device time of every kernel and copy. Prints host ms per chunk,
-    device ms per chunk, the device's busy share, device operations per
-    loop step and K1's share of the device time."""
+def phase_stream(device, x: np.ndarray, prns: list, duration_s: float) -> None:
+    """The streaming configuration of conf/gps_l1_realtime_tpu.conf:21-23
+    (dispatch_chunks=16, upload_bits=4, pipeline_depth=4) on the first
+    ``duration_s`` of the main scenario: every satellite tracked."""
+    from gnss_sdr_tpu_torch.io.sources import ArraySignalSource
+    from gnss_sdr_tpu_torch.ops import correlator
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    t0 = time.perf_counter()
+    cfg = ReceiverConfig(signal="1C", fs=FS, n_channels=8, prns=tuple(prns),
+                         chunk_ms=100, dispatch_chunks=16, upload_bits=4,
+                         pipeline_depth=4, pvt_apply_tropo=False,
+                         pvt_apply_iono=False)
+    rx = Receiver(cfg, device=device)
+    correlator.launches = 0
+    tk.launches = 0
+    rx.run_source(ArraySignalSource(x[: int(duration_s * FS)], FS))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tracked = sorted(rx.tracked_prns())
+    _line("stream", t0, dispatch_chunks=16, upload_bits=4, pipeline_depth=4,
+          wall_s=f"{wall:.3f}", realtime_x=f"{duration_s / wall:.3f}",
+          tracked=tracked, dispatches=rx.tracking_dispatches,
+          scan_steps=rx.scan_steps, k2_launches=tk.launches,
+          k1_launches=correlator.launches, fixes=len(rx.fixes))
+    if tracked != sorted(prns):
+        raise SystemExit(f"streaming run tracked {tracked}, expected "
+                         f"{sorted(prns)}")
+    if not (tk.launches == rx.tracking_dispatches > 0
+            and correlator.launches == 0):
+        raise SystemExit("streaming run: K2 launches != dispatches")
+
+
+def _final_carry_case(rx, x: np.ndarray) -> tuple:
+    """(cfg, chunk, carry, tables, None): the receiver's own dispatch on its
+    final carry, over the stream's first chunk as the receiver uploads it."""
+    g = rx.groups[0]
+    cfg = g.trk_cfg
+    return (cfg, rx._upload(x[: cfg.chunk_len + cfg.n_max]), g.trk_state,
+            g._tables_dev, None)
+
+
+def phase_profile(rx, x: np.ndarray, n_chunks: int = 20) -> None:
+    """Device view of the main path's tracking: ``n_chunks`` dispatches of
+    the receiver's own call on its final carry, timed by the host clock,
+    then once more under torch.profiler for the device time of every
+    kernel and copy. Prints host ms per chunk, device ms per chunk, the
+    device's busy share, device operations per chunk and K2's share of the
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from gnss_sdr_tpu_torch.receiver import tracking as trk
 
     t0 = time.perf_counter()
-    g = rx.groups[0]
-    cfg = g.trk_cfg
-    chunk_dev = rx._upload(x[: cfg.chunk_len + cfg.n_max])
+    cfg, chunk_dev, state, tables, _ = _final_carry_case(rx, x)
 
     def run():
-        return trk.track_chunk_packed(cfg, chunk_dev, g.trk_state,
-                                      g._tables_dev)[1]
+        return trk.track_chunk_packed(cfg, chunk_dev, state, tables)[1]
 
     for _ in range(2):
         run()
@@ -360,22 +654,23 @@ def phase_profile(rx, x: np.ndarray, n_chunks: int = 5) -> None:
     if not dev:
         raise SystemExit("the profiler saw no device activity")
     dev_us = sum(e.time_range.elapsed_us() for e in dev)
-    k1_us = sum(e.time_range.elapsed_us() for e in dev
-                if "epoch_correlate_kernel" in e.name)
+    k2 = [e for e in dev if "track_chunk_kernel" in e.name]
+    k2_us = sum(e.time_range.elapsed_us() for e in k2)
     dev_ms = dev_us / n_chunks / 1e3
-    _line("profile", t0, channels_tracking=int(g.trk_state.active.sum()),
+    _line("profile", t0, channels_tracking=int(state.active.sum()),
           host_ms_per_chunk=f"{host_ms:.3f}",
           device_ms_per_chunk=f"{dev_ms:.3f}",
           device_busy_share=f"{dev_ms / host_ms:.4f}",
-          device_ops_per_step=f"{len(dev) / (n_chunks * cfg.n_steps):.1f}",
-          k1_share_of_device=f"{k1_us / dev_us:.4f}",
-          k1_us_per_launch=f"{k1_us / (n_chunks * cfg.n_steps):.3f}")
+          device_ops_per_chunk=f"{len(dev) / n_chunks:.1f}",
+          k2_launches=len(k2), k2_share_of_device=f"{k2_us / dev_us:.4f}",
+          k2_us_per_launch=f"{k2_us / max(len(k2), 1):.3f}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
-                    help="rehearse phases 3 and 5 on the CPU (plain versions)")
+                    help="rehearse phases 3, 4 and 6 on the CPU (plain "
+                         "versions)")
     args = ap.parse_args(argv)
 
     from gnss_sdr_tpu_torch.ops import correlator
@@ -383,7 +678,8 @@ def main(argv=None) -> int:
     if args.cpu:
         device = torch.device("cpu")
         phase_k1(device, correlator)
-        phase_main(device, correlator, 3.0, check_fix=False)
+        phase_k2(device, with_k16=False)
+        phase_main(device, 3.0, check_fix=False)
         return 0
 
     t0 = time.perf_counter()
@@ -401,30 +697,54 @@ def main(argv=None) -> int:
 
     from gnss_sdr_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
-    info = cuda_build.build("correlator")
-    for ln in info["report"].splitlines():
-        if "ptxas" in ln or "error" in ln.lower():
-            print(f"[build] correlator: {ln.strip()}")
-    _line("build", t0, kernel="correlator", library=info["path"].name,
-          nvcc_seconds=f"{info['seconds']:.3f}")
+    built = cuda_build.build_many(["correlator", "tracking"])
+    for name, info in built.items():
+        for ln in info["report"].splitlines():
+            if "ptxas" in ln or "error" in ln.lower():
+                print(f"[build] {name}: {ln.strip()}")
+        _line("build", t0, kernel=name, library=info["path"].name,
+              nvcc_seconds=f"{info['seconds']:.3f}")
 
-    max_err = phase_k1(device, correlator)
+    correlator.launches = 0
+    k1_err = phase_k1(device, correlator)
+    k2_err = phase_k2(device, with_k16=True)
     timing = phase_timing(device, correlator, smi)
-    main_run = phase_main(device, correlator, 28.0, check_fix=True)
-    phase_profile(main_run["rx"], main_run["x"])
+    timing_k2 = phase_timing_k2(device, smi)
+    k1_own = correlator.launches
+    main_run = phase_main(device, 28.0, check_fix=True)
+    rx, x = main_run["rx"], main_run["x"]
+    k2_err = _worst(k2_err, phase_k2_case("final_carry", device,
+                                          *_final_carry_case(rx, x)))
+    phase_stream(device, x, main_run["prns"], 12.0)
+    phase_profile(rx, x)
 
-    a = timing["a_main_path"]
+    a, k2c8 = timing["a_main_path"], timing_k2[8]
     record = {"kernels": [{
         "name": "epoch_multicorrelator",
         "route": "cuda",
         "source": "gnss_sdr_tpu_torch/csrc/correlator.cu",
         "replaces": "gnss_sdr_tpu/ops/correlator_pallas.py:70",
-        "launches": main_run["launches"],
-        "max_abs_err": max_err,
+        "launches": k1_own,
+        "main_path_launches": main_run["k1_launches"],
+        "max_abs_err": k1_err,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
         "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "tracking_chunk",
+        "route": "cuda",
+        "source": "gnss_sdr_tpu_torch/csrc/tracking.cu",
+        "replaces": "gnss_sdr_tpu/receiver/tracking.py:432",
+        "launches": main_run["k2_launches"],
+        "max_abs_err": k2_err["max_abs_err"],
+        "float_tol_ratio": k2_err["float_tol_ratio"],
+        "prompt_tol_ratio": k2_err["prompt_tol_ratio"],
+        "ms": k2c8["ms"],
+        "plain_ms": k2c8["plain_ms"],
+        "bound_ms": k2c8["bound_ms"],
+        "bound_by": k2c8["bound_by"],
         "library_ms": None,
     }]}
     print(json.dumps(record))

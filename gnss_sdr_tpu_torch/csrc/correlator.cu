@@ -10,26 +10,19 @@
 //   out_k += x * code_c[floor((rem_c + cps_c n + tap_k) tr) mod Lt]
 // giving out[C, K, 2].
 //
-// Design (right and simple first): one block per channel, 256 threads. The
-// block stages its channel's code table in dynamic shared memory (4 KB for
+// Design (right and simple first): one block per channel of GNSS_THREADS
+// (512, epoch_correlate.cuh) threads. The block stages its channel's code
+// table in dynamic shared memory (4 KB for
 // L1 C/A, 40 KB for the longest 10230-chip code) where the per-sample
 // gather is native; each thread strides over the window with 2K partial
 // sums in registers; a warp-shuffle then shared-memory reduction finishes
 // the block. The TPU kernel's padded window + mask becomes a loop bound.
 //
-// Rounding: the code index must match the plain PyTorch version bit for bit
-// (one flipped floor() changes a chip). The JAX reference's CPU backend
-// fuses rem + cps*n into one FMA, and the port's plain version rounds it the
-// same way (ops/correlator.py:fma32), so the kernel states each rounding
-// with intrinsics nvcc will not re-associate: __fmaf_rn for the two
-// product-sums (code phase and carrier phase), __fadd_rn / __fmul_rn for the
-// tap offset and table rate, in the order of ops/correlator.py; and sincosf
-// (never the fast __sincosf).
-#include <cuda_runtime.h>
-#include <math.h>
-
-#define GNSS_THREADS 256
-#define GNSS_MAX_TAPS 8
+// The per-epoch body (window loop, carrier wipe, code gather, reduction)
+// lives in epoch_correlate.cuh, which the fused tracking kernel
+// (tracking.cu) inlines too, so both run the same correlation code and
+// roundings.
+#include "epoch_correlate.cuh"
 
 __global__ void __launch_bounds__(GNSS_THREADS)
 epoch_correlate_kernel(const float* __restrict__ chunk, int chunk_len,
@@ -43,7 +36,7 @@ epoch_correlate_kernel(const float* __restrict__ chunk, int chunk_len,
                        const float* __restrict__ tap_offsets, int n_taps,
                        int table_rate, float* __restrict__ out) {
   extern __shared__ float code[];                 // [table_len]
-  __shared__ float red[GNSS_THREADS / 32][2 * GNSS_MAX_TAPS];
+  __shared__ EpochReduce red;
 
   const int c = blockIdx.x;
   const float* table = code_tables + (size_t)c * table_len;
@@ -51,61 +44,12 @@ epoch_correlate_kernel(const float* __restrict__ chunk, int chunk_len,
   __syncthreads();
 
   const int off = offsets[c];
-  const int ns = min(n_samples[c], n_max);
-  const float rem = rem_code_phases[c];
-  const float cps = code_phase_steps[c];
-  const float frac = carr_phase_fracs[c];
-  const float step = carr_phase_steps[c];
-  const float tr = (float)table_rate;
-  const float two_pi = 6.28318548202514648f;      // float32(2 pi)
-  float taps[GNSS_MAX_TAPS];
-#pragma unroll
-  for (int k = 0; k < GNSS_MAX_TAPS; ++k) taps[k] = k < n_taps ? tap_offsets[k] : 0.f;
-
-  float acc[2 * GNSS_MAX_TAPS];
-#pragma unroll
-  for (int k = 0; k < 2 * GNSS_MAX_TAPS; ++k) acc[k] = 0.f;
-
-  for (int n = threadIdx.x; n < ns; n += blockDim.x) {
-    const int s = off + n;
-    if (s < 0 || s >= chunk_len) continue;        // in-kernel bounds guard
-    const float2 w = reinterpret_cast<const float2*>(chunk)[s];
-    const float nf = (float)n;
-    float ph = __fmaf_rn(step, nf, frac);
-    ph = __fsub_rn(ph, floorf(ph));               // mod 1 (floor semantics)
-    float sn, cs;
-    sincosf(__fmul_rn(two_pi, ph), &sn, &cs);
-    const float xr = w.x * cs + w.y * sn;         // (wr + j wi)(c - j s)
-    const float xi = w.y * cs - w.x * sn;
-    const float chips = __fmaf_rn(cps, nf, rem);
-#pragma unroll
-    for (int k = 0; k < GNSS_MAX_TAPS; ++k) {
-      if (k < n_taps) {
-        int idx = (int)floorf(__fmul_rn(__fadd_rn(chips, taps[k]), tr));
-        idx = ((idx % table_len) + table_len) % table_len;   // floor-mod
-        const float cv = code[idx];
-        acc[2 * k] += cv * xr;
-        acc[2 * k + 1] += cv * xi;
-      }
-    }
-  }
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < 2 * GNSS_MAX_TAPS; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
-    if (lane == 0) red[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < 2 * n_taps) {
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < GNSS_THREADS / 32; ++w) v += red[w][threadIdx.x];
-    out[(size_t)c * 2 * n_taps + threadIdx.x] = v;
-  }
+  // in-kernel bounds guard: only samples 0 <= off + n < chunk_len are read
+  epoch_correlate_block(
+      reinterpret_cast<const float2*>(chunk) + off, -off, chunk_len - off,
+      min(n_samples[c], n_max), code, table_len, rem_code_phases[c],
+      code_phase_steps[c], carr_phase_fracs[c], carr_phase_steps[c],
+      tap_offsets, n_taps, table_rate, red, out + (size_t)c * 2 * n_taps);
 }
 
 extern "C" int gnss_epoch_correlate(

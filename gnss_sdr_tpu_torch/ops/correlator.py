@@ -10,24 +10,25 @@ Pallas kernel ``_kernel`` / ``pallas_epoch_correlate``
 Two versions of the same function:
 
 - :func:`epoch_correlate_plain` — plain PyTorch: a gather into ``[C, K, N]``
-  and a masked reduction. The CPU path, and the yardstick the kernel is held
+  and a masked reduction in the kernels' summation order, so that it gives
+  the kernels' bits. The CPU path, and the yardstick the kernels are held
   against on the card.
 - the hand-written CUDA kernel ``csrc/correlator.cu`` (one block per channel,
   the code table staged in shared memory, per-thread partial sums, a
-  warp-shuffle reduction), launched by :func:`batch_epoch_correlate` for CUDA
-  tensors.
+  warp-shuffle reduction; its body is ``csrc/epoch_correlate.cuh``, which
+  the fused tracking kernel runs too), launched by
+  :func:`batch_epoch_correlate` for CUDA tensors.
 
 What bounds the kernel on an H100: it reads about C*n*8 B of window samples
-plus C*Lt*4 B of code tables and writes C*K*8 B; at the GPS L1 main-path shape
-(C=8, n~2000, Lt=1023) that is ~0.2 MB, under a tenth of a microsecond of
-HBM time, and its FLOPs are fewer still. Neither bounds it: measured on an
-H100 it takes about 8-9 us of device time per launch, nearly the same at C=8
+plus C*Lt*4 B of code tables and writes C*K*8 B; at the GPS L1 tracking
+shape (C=8, n~2000, Lt=1023) that is ~0.2 MB, under a tenth of a
+microsecond of HBM time, and its FLOPs are fewer still. Neither bounds it:
+measured on an H100 it takes about 9 us per launch, nearly the same at C=8
 and C=128 (PERF.md). That time is spent inside each block, with one block
-per channel on 8 of the card's 132 SMs: staging the table, ~8 serial
-``sincosf`` iterations per thread, and a two-stage reduction. Splitting a
-channel's window across blocks or warps, or fusing the whole tracking scan
-into one kernel so the per-epoch launch goes too, is later work; this kernel
-is the exact-gather correlator the scan calls meanwhile.
+per channel on 8 of the card's 132 SMs. Since the fused tracking kernel
+runs this body once per epoch inside one launch per dispatch, the receiver
+no longer launches this kernel; it stays as the standalone multicorrelator
+and the eager loop's card-side correlator.
 
 The JAX package's production path instead uses a rational-stride int8
 replica (``batch_epoch_correlate_stride``) because Mosaic could not lower the
@@ -51,7 +52,12 @@ launches = 0
 
 # the kernel's fixed limits (csrc/correlator.cu)
 MAX_TAPS = 8
-MAX_TABLE_BYTES = 48 * 1024 - 512   # dynamic smem beside the 512 B reduction
+# threads of both kernels' blocks (csrc/epoch_correlate.cuh GNSS_THREADS,
+# chosen by measurement on an H100, PERF.md): the order in which a block sums
+# a window, which the plain version repeats (_block_sum)
+BLOCK_THREADS = 512
+# dynamic smem beside the reduction's BLOCK_THREADS / 32 rows of 2K floats
+MAX_TABLE_BYTES = 48 * 1024 - BLOCK_THREADS // 32 * 2 * MAX_TAPS * 4
 
 _TWO_PI = float(np.float32(2.0 * np.pi))
 
@@ -64,7 +70,7 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     sample count), so the port must round it the same way everywhere: the
     product of two float32 is exact in float64, and one float64 add rounded
     to float32 equals fmaf except on a double-rounding tie (about 2^-29 of
-    inputs). The CUDA kernel calls ``__fmaf_rn``."""
+    inputs). The CUDA kernels compute the same float64 sum."""
     return (a.double() * b.double() + c.double()).to(torch.float32)
 
 
@@ -82,7 +88,13 @@ def epoch_correlate_plain(chunk: torch.Tensor, offsets: torch.Tensor,
     The float32 operations, and their order, are those of the JAX
     ``epoch_correlate`` (correlator.py:62-96) with its products-plus-sums
     fused (:func:`fma32`), so the code index — a floor of a float sum —
-    agrees with it, and with the kernel, bit for bit."""
+    agrees with it bit for bit. The sum over the window follows the
+    kernels' block (:func:`_block_sum`) on every device, so on the card the
+    whole result equals theirs bit for bit, which lets the tracking kernel
+    be held to the eager loop over thousands of dependent steps (a loop of
+    PLL / DLL updates turns a last-bit difference in each step's sum into
+    more than 1e-4 within 1600 steps), and the CPU path that the tests hold
+    against the JAX package sums in that same order."""
     dev = chunk.device
     n_len = chunk.shape[0]
     n_i = torch.arange(n_max, dtype=torch.int32, device=dev)
@@ -110,8 +122,31 @@ def epoch_correlate_plain(chunk: torch.Tensor, offsets: torch.Tensor,
     codes_kn = torch.gather(code_tables, 1,
                             idx.reshape(idx.shape[0], -1).long()
                             ).reshape(idx.shape)                   # [C, K, N]
-    x2 = torch.stack([xr, xi], dim=-1)                             # [C, N, 2]
-    return torch.bmm(codes_kn, x2)                                 # [C, K, 2]
+    x2 = torch.stack([xr, xi], dim=1)                              # [C, 2, N]
+    return _block_sum(codes_kn[:, :, None, :] * x2[:, None])       # [C, K, 2]
+
+
+def _block_sum(p: torch.Tensor) -> torch.Tensor:
+    """Sum the last axis of ``p`` [..., N] in the order the kernels' thread
+    block sums it (csrc/epoch_correlate.cuh): each of BLOCK_THREADS threads
+    adds the samples t, t + BLOCK_THREADS, ... in order, a warp-shuffle tree
+    halves each warp's 32 sums, then the warps' sums are added in order. So
+    the plain version and the kernels give the same bits."""
+    n = p.shape[-1]
+    rows = -(-n // BLOCK_THREADS)
+    p = torch.nn.functional.pad(p, (0, rows * BLOCK_THREADS - n))
+    p = p.reshape(*p.shape[:-1], rows, BLOCK_THREADS)
+    acc = p[..., 0, :]
+    for r in range(1, rows):
+        acc = acc + p[..., r, :]
+    lanes = acc.reshape(*acc.shape[:-1], BLOCK_THREADS // 32, 32)
+    for d in (16, 8, 4, 2, 1):
+        lanes = lanes[..., :d] + lanes[..., d:2 * d]
+    warps = lanes[..., 0]
+    out = warps[..., 0]
+    for w in range(1, warps.shape[-1]):
+        out = out + warps[..., w]
+    return out
 
 
 def _check(chunk, offsets, n_samples, code_tables, params, tap_offsets,

@@ -318,8 +318,10 @@ class Receiver:
         self._tick_count = 0
         self._chunk_index = 0
         # loop steps dispatched to the tracking engine (each step is one
-        # correlator call for all channels)
+        # code epoch for all channels), and the dispatches (on the card,
+        # one launch of the fused tracking kernel each)
         self.scan_steps = 0
+        self.tracking_dispatches = 0
         self._buf = np.zeros(0, np.complex64)
         self._buf_pos = 0
         self._frags: list = []
@@ -589,6 +591,7 @@ class Receiver:
             cfg_k, chunk_dev, g.trk_state, g._tables_dev,
             slab=None if chunk_dev.shape[0] == slab else slab)
         self.scan_steps += cfg_k.n_steps
+        self.tracking_dispatches += 1
         return packed
 
     def _finish_tracking(self, g: SignalGroup, pend,

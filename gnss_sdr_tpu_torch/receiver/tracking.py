@@ -5,10 +5,14 @@ Port of gnss_sdr_tpu/receiver/tracking.py (the reference's
 ``dll_pll_veml_tracking.cc`` redesigned as a scan): ALL channels advance
 together through a fixed-size sample chunk; one step = one code epoch per
 channel, with loop filters and NCO states carried from step to step. The JAX
-``lax.scan`` becomes a Python loop over ``cfg.n_steps`` steps of device
-tensor ops. The loop never synchronises with the host: no ``.item()``, no
-boolean-mask indexing, no Python branch on a tensor value — every per-channel
-decision is a ``torch.where``, as in the JAX step.
+``lax.scan`` becomes, on the card, one launch of the fused tracking kernel
+K2 per dispatch (:func:`track_chunk_packed` ->
+``ops/tracking_kernel.py`` -> ``csrc/tracking.cu``), and, as K2's plain
+version and the CPU path, the eager loop :func:`track_chunk`: a Python loop
+over ``cfg.n_steps`` steps of tensor ops. The eager loop never synchronises
+with the host: no ``.item()``, no boolean-mask indexing, no Python branch on
+a tensor value — every per-channel decision is a ``torch.where``, as in the
+JAX step.
 
 Variable epoch lengths are handled with a per-channel sample count and a
 bounded window (``n_max``); per-channel sample offsets into the chunk live in
@@ -33,7 +37,7 @@ import torch
 
 from gnss_sdr_tpu_torch.ops import cn0 as cn0_ops
 from gnss_sdr_tpu_torch.ops import correlator, discriminators, iq
-from gnss_sdr_tpu_torch.ops import kalman
+from gnss_sdr_tpu_torch.ops import kalman, tracking_kernel
 from gnss_sdr_tpu_torch.ops import loop_filters as lf
 from gnss_sdr_tpu_torch.ops.correlator import fma32
 
@@ -392,18 +396,31 @@ def track_chunk_packed(cfg: TrackingConfig, chunk: torch.Tensor,
                        sec_tables: torch.Tensor | None = None,
                        slab: int | None = None):
     """Slice the shared uploaded chunk to this group's slab, run the tracking
-    loop and pack the host outputs: (new_state, packed [S, C, 13])."""
+    loop and pack the host outputs: (new_state, packed [S, C, 13]).
+
+    CUDA tensors go through the fused tracking kernel (K2,
+    ops/tracking_kernel.py): one launch for the whole dispatch, which writes
+    the packed rows itself. CPU tensors run the eager loop
+    :func:`track_chunk`, K2's plain version."""
     if slab is not None:
         chunk = chunk[:slab]
+    chunk = iq.as_iq2(chunk)
+    if chunk.device.type == "cuda":
+        return tracking_kernel.track_chunk_fused(cfg, chunk, state,
+                                                 code_tables, sec_tables)
+    if chunk.device.type != "cpu":
+        raise ValueError(f"unsupported device {chunk.device}")
     new_state, out = track_chunk(cfg, chunk, state, code_tables, sec_tables)
     return new_state, pack_host_outputs(out, new_state.loss_of_lock)
 
 
 def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,
                 code_tables: torch.Tensor,
-                sec_tables: torch.Tensor | None = None
+                sec_tables: torch.Tensor | None = None,
+                correlate=correlator.batch_epoch_correlate
                 ) -> tuple[TrackingState, TrackingOutput]:
-    """Advance all channels through one chunk of conditioned samples.
+    """Advance all channels through one chunk of conditioned samples: the
+    eager loop, one step of tensor operations per code epoch.
 
     Args:
       cfg: tracking config.
@@ -414,6 +431,10 @@ def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,
       code_tables: [C, Lc*table_rate] float32 per-channel code tables.
       sec_tables: [C, S] float32 +-1 secondary-code chips (see
         :func:`set_secondary`); None = no wipeoff anywhere.
+      correlate: the multicorrelator, with the arguments of
+        :func:`~gnss_sdr_tpu_torch.ops.correlator.batch_epoch_correlate`
+        (the default: the plain version on the CPU, K1 on the card) or
+        :func:`~gnss_sdr_tpu_torch.ops.correlator.epoch_correlate_plain`.
 
     Returns (new_state, outputs). ``new_state.sample_offset`` is already
     rebased for the next chunk (offset -= chunk_len). Loop filters update
@@ -453,7 +474,7 @@ def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,
         valid = tracking & (st.sample_offset >= 0) & (st.sample_offset < chunk_len)
 
         safe_off = torch.clamp(st.sample_offset, 0, chunk_len)
-        corr = correlator.batch_epoch_correlate(
+        corr = correlate(
             chunk, safe_off, torch.where(valid, n_samp, zero_i), code_tables,
             st.rem_code_phase, cps, st.carr_phase_frac,
             st.carrier_freq * inv_fs, taps, n_max=cfg.n_max,

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exports plain C entry points and is compiled by
 ``nvcc`` into ``build/kernels/<name>-<hash>.so`` at the repository root, keyed
-on the source's content and the compiler flags, so a fresh checkout builds
-on first use and an edited source rebuilds. The library is then loaded with
+on the source's content, every shared header ``csrc/*.cuh`` and the compiler
+flags, so a fresh checkout builds on first use and an edited source, header
+or flag rebuilds. The library is then loaded with
 ``ctypes`` (no PyTorch headers are compiled, which keeps a build to seconds).
 
 Nothing here runs at import time: the CPU-only test environment imports every
@@ -41,31 +42,44 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> dict:
-    """Compile ``csrc/<name>.cu`` unless it is built already. Returns
-    {"path", "seconds", "report"} where ``report`` is nvcc's output (the
-    ``-Xptxas -v`` register / shared-memory / spill lines); raises if the
-    build fails."""
-    out = library_path(name)
-    if out.exists():
-        return dict(path=out, seconds=0.0, report="(cached)")
+def build_many(names) -> dict:
+    """Compile ``csrc/<name>.cu`` for every name not built already, one
+    ``nvcc`` per source, all started together. Returns {name: {"path",
+    "seconds", "report"}} where ``report`` is nvcc's output (the ``-Xptxas
+    -v`` register / shared-memory / spill lines); raises if a build
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {name}: nvcc exit "
-                           f"{proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, out)
-    return dict(path=out, seconds=time.perf_counter() - t0,
-                report=proc.stdout)
+    procs, results = {}, {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            results[name] = dict(path=out, seconds=0.0, report="(cached)")
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (out, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{report}")
+            continue
+        os.replace(tmp, out)
+        results[name] = dict(path=out, seconds=time.perf_counter() - t0,
+                             report=report)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return results
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -74,7 +88,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         path = library_path(name)
         if not path.exists():
-            build(name)
+            build_many([name])
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
     return lib

@@ -127,3 +127,63 @@ def build_gps_l1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0)
                   tow_bits_start=tow_bits_start, duration_s=duration_s,
                   fs=fs, ephemerides=ephs, sats=sats, prns=chosen)
     return sc
+
+
+# 5 satellites (prn, Doppler Hz, code delay s) for tracking_handoff_case
+_HANDOFF_SATS = ((3, 1200.0, 1.1e-4), (7, -2400.0, 3.3e-4), (11, 350.0, 6.1e-4),
+                 (19, 3900.0, 8.4e-4), (24, -800.0, 2.0e-4))
+
+
+def tracking_handoff_case(device, *, chunks: int = 1, extended: bool = False,
+                          n_channels: int = 6, fs: float = 2.0e6,
+                          seed: int = 11) -> dict:
+    """An open-loop tracking input: 5 generated GPS L1 C/A satellites
+    (45-49 dB-Hz) on ``n_channels`` channels, every channel but the last
+    (idle) handed off to satellite ``ch % 5`` slightly off the truth (+15 Hz
+    in code rate, 15 Hz steps of Doppler error), over one dispatch of
+    ``chunks`` 100 ms chunks plus the halo. ``extended`` switches channels 1
+    and 3 to 20-epoch coherent integration and gives channel 3 a 10-chip
+    secondary code.
+
+    Returns dict(cfg, chunk [L, 2] float32 numpy, state (the carry on
+    ``device``), tables [C, 1023] float32 numpy, sec [C, 32] float32 numpy
+    or None)."""
+    import dataclasses as _dc
+
+    from gnss_sdr_tpu_torch.models import codes
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    spec = constants.GPS_L1_CA
+    cfg = trk.default_config(spec, fs, 100)
+    if chunks > 1:
+        cl = cfg.chunk_len * chunks
+        cfg = _dc.replace(cfg, chunk_len=cl, n_steps=int(
+            np.ceil(cl / cfg.samples_per_code)) + 2)
+    sats = [generator.SatParams(prn=p, cn0_dbhz=45.0 + i, doppler_hz=d,
+                                code_delay_s=cd)
+            for i, (p, d, cd) in enumerate(_HANDOFF_SATS)]
+    n = cfg.chunk_len + cfg.n_max
+    x = generator.generate(spec, sats, fs, n / fs, seed=seed)
+    chunk = np.stack([x.real, x.imag], -1).astype(np.float32)
+    n_ch = n_channels
+    state = trk.init_state(n_ch, cfg.n_taps, device=device)
+    tables = np.zeros((n_ch, spec.code_length_chips), np.float32)
+    spc = fs / spec.code_rate_cps
+    for ch in range(n_ch - 1):
+        sp = sats[ch % len(sats)]
+        start = sp.code_delay_s * fs        # chip 0 of the code at d * fs
+        off = int(np.ceil(start))
+        state = trk.start_channel(
+            state, ch, code_freq=spec.code_rate_cps * (
+                1 + (sp.doppler_hz + 15.0) / spec.carrier_freq_hz),
+            doppler_hz=sp.doppler_hz + 15.0 * (ch % len(sats) - 2),
+            sample_offset=off, rem_code_phase=float((off - start) / spc))
+        tables[ch] = codes.code_chips("1C", sp.prn)
+    sec = None
+    if extended:
+        sec = np.ones((n_ch, cfg.sec_table_len), np.float32)
+        state = trk.set_extension(state, 1, 20, 7)
+        state = trk.set_extension(state, 3, 20, 0)
+        state = trk.set_secondary(state, sec, 3,
+                                  [0, 0, 1, 0, 1, 1, 0, 1, 0, 0], 2)
+    return dict(cfg=cfg, chunk=chunk, state=state, tables=tables, sec=sec)

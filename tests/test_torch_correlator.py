@@ -7,6 +7,9 @@ against the plain version on the card by the ``gpu`` test, which needs no
 JAX (the card's machine has none), so JAX is imported by the tests that use
 it."""
 
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -146,6 +149,60 @@ def test_kernel_library_keyed_on_source(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "NVCC_FLAGS", cuda_build.NVCC_FLAGS[:-2])
     (tmp_path / "k.cu").write_text("// v1\n")
     assert cuda_build.library_path("k") != v1
+
+
+def test_block_sum_is_the_kernels_order():
+    """The plain version's sum repeats the kernels' block order
+    (csrc/epoch_correlate.cuh), written out here thread by thread in float32:
+    each thread adds samples t, t + NT, ... in order; a shuffle tree halves
+    each warp; the warps are added in order. It stays an accurate sum."""
+    rng = np.random.default_rng(7)
+    p = (rng.standard_normal((2, 3, 2, 2064)) * 100).astype(np.float32)
+    got = tcorr._block_sum(torch.from_numpy(p)).numpy()
+    nt = tcorr.BLOCK_THREADS
+    acc = np.zeros(p.shape[:-1] + (nt,), np.float32)
+    for start in range(0, p.shape[-1], nt):
+        part = p[..., start:start + nt]
+        acc[..., : part.shape[-1]] += part
+    lanes = acc.reshape(p.shape[:-1] + (nt // 32, 32))
+    for d in (16, 8, 4, 2, 1):
+        lanes = lanes[..., :d] + lanes[..., d:2 * d]
+    want = np.zeros(p.shape[:-1], np.float32)
+    for w in range(nt // 32):
+        want += lanes[..., w, 0]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, p.astype(np.float64).sum(-1), rtol=1e-5,
+                               atol=1e-2)
+    # both kernels' blocks have that many threads: the shared header's one
+    # constant, which each kernel launches with
+    csrc = pathlib.Path(tcorr.__file__).resolve().parents[1] / "csrc"
+    src = (csrc / "epoch_correlate.cuh").read_text()
+    assert re.search(r"#define GNSS_THREADS (\d+)", src).group(1) == str(nt)
+    for name in ("correlator.cu", "tracking.cu"):
+        src = (csrc / name).read_text()
+        assert "__launch_bounds__(GNSS_THREADS)" in src, name
+        assert re.search(r"<<<[^,]+, GNSS_THREADS,", src), name
+
+
+def test_kernel_library_keyed_on_headers(tmp_path, monkeypatch):
+    """Every shared header csrc/*.cuh enters each library's name, so an
+    edited header is rebuilt too, never served stale from build/kernels."""
+    from gnss_sdr_tpu_torch.utils import cuda_build
+
+    assert (cuda_build.CSRC / "epoch_correlate.cuh").exists()
+    assert cuda_build.library_path("tracking") != cuda_build.library_path(
+        "correlator")
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    v1 = cuda_build.library_path("k")
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    v2 = cuda_build.library_path("k")
+    assert v2 != v1
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert cuda_build.library_path("k") != v2
+    (tmp_path / "other.cuh").unlink()
+    assert cuda_build.library_path("k") == v2
 
 
 @pytest.mark.gpu

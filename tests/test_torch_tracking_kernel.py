@@ -1,0 +1,306 @@
+"""The fused tracking kernel's wrapper (gnss_sdr_tpu_torch.ops.tracking_kernel)
+and the CPU path of ``track_chunk_packed``.
+
+On the CPU: the packed carry round-trips every ``TrackingState`` field
+exactly; its layout and the kernel's parameter block are those of
+csrc/tracking.cu; ``track_chunk_packed`` (the eager loop, K2's plain
+version, which sums each window in the kernels' block order) still equals
+the JAX package's ``track_chunk_packed`` on the extended-integration handoff
+case, int32 columns exactly and float columns within rtol 1e-4 / atol 1e-4
+(the prompt as a complex number: |dz| <= 1e-4 |z| + 1e-4, see
+tests/test_torch_tracking.py), and on the plain handoff of other seeds
+its int columns, int carry fields and packed float columns too; the
+wrapper's checks refuse what the kernel does not take. The ``gpu`` test runs
+K2 against the eager loop with the plain correlator on the card, at the same
+tolerances; it needs no JAX (the card's machine has none), so JAX is
+imported by the tests that use it.
+
+Run as a script, the file prints, for each seed given (default 1-8 and
+11) and each handoff case, how far the CPU path lies from the JAX package
+in units of the rtol / atol 1e-4 bound:
+
+    PYTHONPATH=. python tests/test_torch_tracking_kernel.py [SEED ...]
+"""
+
+import dataclasses
+import pathlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from gnss_sdr_tpu_torch import constants
+from gnss_sdr_tpu_torch.ops import correlator
+from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+from gnss_sdr_tpu_torch.receiver import tracking as ttrk
+from gnss_sdr_tpu_torch.utils import scenario
+
+torch.set_num_threads(1)   # one thread per xdist worker
+
+FS = 2.0e6
+CSRC = pathlib.Path(tk.__file__).resolve().parents[1] / "csrc"
+
+
+def _fields(state):
+    """(name, numpy array) for every leaf of a carry."""
+    st = ttrk.state_to_numpy(state) if isinstance(state.active, torch.Tensor) \
+        else state
+    for name in ttrk.TrackingState._fields:
+        v = getattr(st, name)
+        if name in ("dll", "pll", "cn0"):
+            for sub, x in zip(v._fields, v):
+                yield f"{name}.{sub}", np.asarray(x)
+        else:
+            yield name, np.asarray(v)
+
+
+def _assert_carry_close(got, want, exact_floats=False):
+    for (name, a), (_, b) in zip(_fields(got), _fields(want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype.kind in "biu" or exact_floats:
+            np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8),
+                                          err_msg=name)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4,
+                                       err_msg=name)
+
+
+def _assert_packed_close(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    f_g, i_g, lol_g = ttrk.unpack_host_outputs(got)
+    f_w, i_w, lol_w = ttrk.unpack_host_outputs(want)
+    np.testing.assert_array_equal(i_g, i_w)
+    np.testing.assert_array_equal(lol_g, lol_w)
+    np.testing.assert_array_equal(f_g[..., 8], f_w[..., 8])      # valid
+    np.testing.assert_allclose(f_g[..., 2:8], f_w[..., 2:8], rtol=1e-4,
+                               atol=1e-4)
+    zg = f_g[..., 0] + 1j * f_g[..., 1]
+    zw = f_w[..., 0] + 1j * f_w[..., 1]
+    bad = np.abs(zg - zw) > 1e-4 * np.abs(zw) + 1e-4
+    assert not bad.any(), f"prompt: {np.argwhere(bad)[:5]}"
+
+
+def _leaves(state):
+    for v in state:
+        yield from (v if isinstance(v, tuple) else (v,))
+
+
+def test_carry_roundtrip_exact():
+    jtrk = pytest.importorskip("gnss_sdr_tpu.receiver.tracking")
+    js = jtrk.init_state(5, 3)
+    js = jtrk.start_channel(js, 2, code_freq=1.0231e6, doppler_hz=-1500.0,
+                            sample_offset=77, rem_code_phase=0.25)
+    js = jtrk.start_channel(js, 4, code_freq=1.0229e6, doppler_hz=3100.0,
+                            sample_offset=-5, rem_code_phase=0.1)
+    js = jtrk.set_extension(js, 2, 20, 13)
+    js = jtrk.set_secondary(js, np.ones((5, 32), np.float32), 4,
+                            [0, 1, 1, 0], 5)
+    st = ttrk.state_from_numpy(js, "cpu")
+    buf = tk.pack_carry(st)
+    assert buf.dtype == torch.int32
+    assert tuple(buf.shape) == (5, tk.carry_width(3))
+    back = tk.unpack_carry(buf, st)
+    _assert_carry_close(back, st, exact_floats=True)
+    _assert_carry_close(back, js, exact_floats=True)
+    assert all(t.is_contiguous() for t in _leaves(back))
+
+
+def test_carry_layout_matches_kernel():
+    """The packed carry's words and the parameter block are laid out as
+    csrc/tracking.cu reads them."""
+    src = (CSRC / "tracking.cu").read_text()
+    enum = re.search(r"enum CarryWord \{(.*?)\};", src, re.S).group(1)
+    words = re.findall(r"W_([A-Z0-9_]+)", enum)
+    want = [f.replace(".", "_").upper() for f in tk.CARRY_FIELDS]
+    assert words == want + ["ACC_CORR"]
+    body = re.search(r"struct TrackParams \{(.*?)\};", src, re.S).group(1)
+    names = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if decl:
+            names += [n.strip().split("[")[0] for n in
+                      decl.split(None, 1)[1].split(",")]
+    assert names == [n for n, _ in tk._Params._fields_]
+
+
+@pytest.fixture(scope="module")
+def handoff():
+    return scenario.tracking_handoff_case("cpu", extended=True)
+
+
+def _both(case):
+    """The handoff ``case`` through the JAX package's and the port's
+    ``track_chunk_packed`` on the CPU -> (port carry, port packed [S, C, 13],
+    JAX carry (numpy), JAX packed)."""
+    import jax.numpy as jnp
+    from gnss_sdr_tpu.receiver import tracking as jtrk
+
+    cfg, state = case["cfg"], case["state"]
+    host = ttrk.state_to_numpy(state)
+    jst = jtrk.init_state(state.active.shape[0], cfg.n_taps)
+    jst = jtrk.TrackingState(**{
+        name: (type(getattr(jst, name))(*(jnp.asarray(x) for x in v))
+               if name in ("dll", "pll", "cn0") else jnp.asarray(v))
+        for name, v in zip(ttrk.TrackingState._fields, host)})
+    jcfg = jtrk.TrackingConfig(**dataclasses.asdict(cfg))
+    sec = case["sec"]
+    jnew, jpacked = jtrk.track_chunk_packed(
+        jcfg, jnp.asarray(case["chunk"]), jst, jnp.asarray(case["tables"]),
+        None if sec is None else jnp.asarray(sec))
+    new, packed = ttrk.track_chunk_packed(
+        cfg, torch.from_numpy(case["chunk"]), state,
+        torch.from_numpy(case["tables"]),
+        None if sec is None else torch.from_numpy(sec))
+    jnew = jtrk.TrackingState(*(
+        type(v)(*map(np.asarray, v)) if isinstance(v, tuple) else np.asarray(v)
+        for v in jnew))
+    return new, packed.numpy(), jnew, np.asarray(jpacked)
+
+
+def test_packed_cpu_matches_jax(handoff):
+    pytest.importorskip("gnss_sdr_tpu.receiver.tracking")
+    new, packed, jnew, jpacked = _both(handoff)
+    _assert_packed_close(packed, jpacked)
+    _assert_carry_close(new, jnew)
+    valid = packed[..., 8] > 0.5
+    assert valid[:, :5].sum() > 400 and not valid[:, 5].any()
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_packed_cpu_matches_jax_across_seeds(seed):
+    """Other draws of the handoff's noise: the int columns, valid, the loss
+    flag and every int / bool carry field equal, the packed float columns and
+    the prompt within the rtol / atol 1e-4 bound. (The carry's float fields
+    are held only at seed 11, above: on other seeds the EMA of I^2 - Q^2, a
+    difference of two large sums during pull-in, lies up to ~30x the bound
+    from the JAX package's in either summation order; PERF.md.)"""
+    pytest.importorskip("gnss_sdr_tpu.receiver.tracking")
+    case = scenario.tracking_handoff_case("cpu", seed=seed)
+    new, packed, jnew, jpacked = _both(case)
+    _assert_packed_close(packed, jpacked)
+    for (name, a), (_, b) in zip(_fields(new), _fields(jnew)):
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_track_chunk_takes_a_correlator():
+    cfg = ttrk.default_config(constants.GPS_L1_CA, FS, 2)
+    state = ttrk.start_channel(ttrk.init_state(2, device="cpu"), 0,
+                               code_freq=1.023e6, doppler_hz=500.0,
+                               sample_offset=3)
+    chunk = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (cfg.chunk_len + cfg.n_max, 2)).astype(np.float32))
+    tables = torch.ones((2, 1023))
+    calls = []
+
+    def plain(*a, **kw):
+        calls.append(1)
+        return correlator.epoch_correlate_plain(*a, **kw)
+
+    st_a, out_a = ttrk.track_chunk(cfg, chunk, state, tables, correlate=plain)
+    st_b, out_b = ttrk.track_chunk(cfg, chunk, state, tables)
+    assert len(calls) == cfg.n_steps
+    for a, b in zip(out_a, out_b):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    _assert_carry_close(st_a, st_b, exact_floats=True)
+
+
+def test_wrapper_checks():
+    cfg = ttrk.default_config(constants.GPS_L1_CA, FS, 100)
+    n = cfg.chunk_len + cfg.n_max
+    st = ttrk.init_state(3, device="cpu")
+    good = dict(chunk=torch.zeros((n, 2)), carry=tk.pack_carry(st),
+                code_tables=torch.ones((3, 1023)), sec_tables=None)
+    tk._check(cfg, **good)
+    bad_cases = [
+        (ValueError, dict(chunk=torch.zeros((n - 1, 2)))),
+        (ValueError, dict(chunk=torch.zeros((n, 2), dtype=torch.float64))),
+        (ValueError, dict(chunk=torch.zeros((2, n)).t())),
+        (ValueError, dict(chunk=torch.zeros((n, 2), device="meta"))),
+        (ValueError, dict(carry=good["carry"][:, :-1].contiguous())),
+        (ValueError, dict(carry=good["carry"].float())),
+        (ValueError, dict(code_tables=torch.ones((3, 50000)))),
+        (ValueError, dict(code_tables=torch.ones((3, 1023),
+                                                 dtype=torch.float64))),
+        (ValueError, dict(sec_tables=torch.ones((2, 32)))),
+        (TypeError, dict(code_tables=np.ones((3, 1023), np.float32))),
+    ]
+    for exc, change in bad_cases:
+        with pytest.raises(exc):
+            tk._check(cfg, **dict(good, **change))
+    for field in ("carrier_kf", "track_pilot"):
+        with pytest.raises(NotImplementedError):
+            tk._check(dataclasses.replace(cfg, **{field: True}), **good)
+    nine = dataclasses.replace(cfg, tap_offsets=tuple(np.linspace(-1, 1, 9)))
+    with pytest.raises(ValueError):
+        tk._check(nine, **good)
+    # the launch itself takes CUDA tensors only, and counts nothing else
+    before = tk.launches
+    with pytest.raises(ValueError):
+        tk.track_chunk_fused(cfg, good["chunk"], st, good["code_tables"])
+    assert tk.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extended", [False, True])
+def test_cuda_kernel_matches_eager_plain(extended):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    dev = torch.device("cuda", 0)
+    case = scenario.tracking_handoff_case(dev, extended=extended)
+    cfg, state = case["cfg"], case["state"]
+    chunk = torch.from_numpy(case["chunk"]).to(dev)
+    tables = torch.from_numpy(case["tables"]).to(dev)
+    sec = None if case["sec"] is None else torch.from_numpy(case["sec"]).to(dev)
+    before = tk.launches
+    new, packed = ttrk.track_chunk_packed(cfg, chunk, state, tables, sec)
+    assert tk.launches == before + 1
+    ref_state, out = ttrk.track_chunk(
+        cfg, chunk, state, tables, sec,
+        correlate=correlator.epoch_correlate_plain)
+    ref = ttrk.pack_host_outputs(out, ref_state.loss_of_lock)
+    torch.cuda.synchronize()
+    _assert_packed_close(packed.cpu().numpy(), ref.cpu().numpy())
+    _assert_carry_close(new, ref_state)
+
+
+def _bound_ratio(a, b) -> float:
+    """max |a - b| / (1e-4 + 1e-4 |b|): at most 1 within the tolerance."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b) / (1e-4 + 1e-4 * np.abs(b))).max())
+
+
+def _readings(seeds) -> None:
+    """Print, per seed and handoff case, whether the int fields equal the
+    JAX package's, and the packed float columns', the prompt's and the
+    worst float carry field's distance in units of the tolerance."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    for seed in seeds:
+        for extended in (False, True):
+            case = scenario.tracking_handoff_case("cpu", seed=seed,
+                                                  extended=extended)
+            new, packed, jnew, jpacked = _both(case)
+            f, i32, lol = ttrk.unpack_host_outputs(packed)
+            jf, ji32, jlol = ttrk.unpack_host_outputs(jpacked)
+            ints = (np.array_equal(i32, ji32) and np.array_equal(lol, jlol)
+                    and np.array_equal(f[..., 8], jf[..., 8]))
+            carry, worst = 0.0, ""
+            for (name, a), (_, b) in zip(_fields(new), _fields(jnew)):
+                if a.dtype.kind in "biu":
+                    ints = ints and np.array_equal(a, b)
+                elif _bound_ratio(a, b) > carry:
+                    carry, worst = _bound_ratio(a, b), name
+            z, jz = f[..., 0] + 1j * f[..., 1], jf[..., 0] + 1j * jf[..., 1]
+            prompt = float((np.abs(z - jz) / (1e-4 + 1e-4 * np.abs(jz))).max())
+            print(f"seed={seed} case={'extended' if extended else 'plain'} "
+                  f"ints_equal={ints} "
+                  f"float_columns={_bound_ratio(f[..., 2:8], jf[..., 2:8]):.4f} "
+                  f"prompt={prompt:.4f} carry_floats={carry:.4f} "
+                  f"carry_worst={worst}", flush=True)
+
+
+if __name__ == "__main__":
+    import sys
+    _readings([int(a) for a in sys.argv[1:]] or [1, 2, 3, 4, 5, 6, 7, 8, 11])
