@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py          # on a machine with an NVIDIA card (H100)
     python3 chip_smoke.py --cpu    # rehearsal on the CPU: plain versions only,
-                                   # a short main path, no result line
+                                   # a short main path and CLI run, no result
+                                   # line
 
 Phases, one line each, with their seconds:
 
@@ -43,7 +44,21 @@ Phases, one line each, with their seconds:
             pipeline_depth=4) on the first 12 s: every satellite tracked.
 7. profile  the receiver's own dispatch on its final carry: host and device
             ms per 100 ms chunk (torch.profiler), the device's busy share,
-            device operations per chunk, K2's share of the device time.
+            device operations per chunk, K2's share of the device time; and
+            the host time to enqueue one dispatch, in turns, with the carry
+            kept packed on the device (the receiver's form) and with the
+            TrackingState packed and unpacked around each launch.
+8. cli      the port's CLI, ``python3 -m gnss_sdr_tpu_torch -c <conf>``, as a
+            subprocess: the main phase's capture written as ishort into a
+            temporary directory, a conf built from conf/gps_l1_file.conf at
+            2 MSps with NMEA, KML and RINEX obs / nav output (PVT.trop_model
+            and iono_model OFF, as the main phase's solver): exit 0, a device
+            line naming cuda, the last fix within 2D < 2 m / 3D < 5 m, GGA
+            sentences, the 6 PRNs in the RINEX obs file, the RINEX nav
+            file's ephemerides equal to the main phase's, one K2 launch per
+            tracking dispatch. Then the shipped conf/gps_l1_file.conf rates
+            (4 MSps conditioned to 2 MSps) on 2 s of the scenario generated
+            at 4 MSps, --max_chunks 20: all 6 PRNs acquired and tracking.
 
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit, then the result line. Float32 matrix products run in
@@ -55,9 +70,13 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import pathlib
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -572,7 +591,7 @@ def phase_main(device, duration_s: float, check_fix: bool) -> dict:
         if not (err_2d < 2.0 and err_3d < 5.0):
             raise SystemExit(f"fix error 2D {err_2d:.2f} m / 3D {err_3d:.2f} m")
     return dict(k1_launches=k1, k2_launches=k2, wall_s=wall, rx=rx, x=x,
-                prns=sorted(sc.prns))
+                prns=sorted(sc.prns), sc=sc)
 
 
 def phase_stream(device, x: np.ndarray, prns: list, duration_s: float) -> None:
@@ -612,11 +631,26 @@ def phase_stream(device, x: np.ndarray, prns: list, duration_s: float) -> None:
 
 def _final_carry_case(rx, x: np.ndarray) -> tuple:
     """(cfg, chunk, carry, tables, None): the receiver's own dispatch on its
-    final carry, over the stream's first chunk as the receiver uploads it."""
+    final carry (as a TrackingState), over the stream's first chunk as the
+    receiver uploads it."""
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
     g = rx.groups[0]
     cfg = g.trk_cfg
-    return (cfg, rx._upload(x[: cfg.chunk_len + cfg.n_max]), g.trk_state,
-            g._tables_dev, None)
+    return (cfg, rx._upload(x[: cfg.chunk_len + cfg.n_max]),
+            trk.as_state(g.trk_state), g._tables_dev, None)
+
+
+def _enqueue_us(fn, n: int) -> float:
+    """Host microseconds per call to enqueue ``n`` calls of ``fn`` (the
+    device work is waited for after the clock stops)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def phase_profile(rx, x: np.ndarray, n_chunks: int = 20) -> None:
@@ -628,12 +662,17 @@ def phase_profile(rx, x: np.ndarray, n_chunks: int = 20) -> None:
     device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
     from gnss_sdr_tpu_torch.receiver import tracking as trk
 
     t0 = time.perf_counter()
     cfg, chunk_dev, state, tables, _ = _final_carry_case(rx, x)
+    carry = tk.pack_carry(state)
 
     def run():
+        return trk.track_chunk_packed(cfg, chunk_dev, carry, tables)[1]
+
+    def run_unpacked():
         return trk.track_chunk_packed(cfg, chunk_dev, state, tables)[1]
 
     for _ in range(2):
@@ -657,19 +696,178 @@ def phase_profile(rx, x: np.ndarray, n_chunks: int = 20) -> None:
     k2 = [e for e in dev if "track_chunk_kernel" in e.name]
     k2_us = sum(e.time_range.elapsed_us() for e in k2)
     dev_ms = dev_us / n_chunks / 1e3
+    # enqueueing one dispatch, packed carry against packed / unpacked
+    # around the launch, in turns (unpacked, packed, packed, unpacked)
+    turns = [_enqueue_us(fn, 50) for fn in (run_unpacked, run, run,
+                                            run_unpacked)]
     _line("profile", t0, channels_tracking=int(state.active.sum()),
           host_ms_per_chunk=f"{host_ms:.3f}",
           device_ms_per_chunk=f"{dev_ms:.3f}",
           device_busy_share=f"{dev_ms / host_ms:.4f}",
           device_ops_per_chunk=f"{len(dev) / n_chunks:.1f}",
           k2_launches=len(k2), k2_share_of_device=f"{k2_us / dev_us:.4f}",
-          k2_us_per_launch=f"{k2_us / max(len(k2), 1):.3f}")
+          k2_us_per_launch=f"{k2_us / max(len(k2), 1):.3f}",
+          enqueue_us_per_dispatch_packed=f"{(turns[1] + turns[2]) / 2:.1f}",
+          enqueue_us_per_dispatch_unpacked=f"{(turns[0] + turns[3]) / 2:.1f}",
+          enqueue_turns_us="/".join(f"{t:.1f}" for t in turns))
+
+
+# -------------------------------------------------------------------- CLI ---
+ROOT = pathlib.Path(__file__).resolve().parent
+
+
+def _write_ishort(path, x: np.ndarray) -> None:
+    """Complex samples as interleaved int16 I/Q at an rms of ~1000."""
+    scale = 1000.0 / np.sqrt(np.mean(np.abs(x[:1_000_000]) ** 2))
+    raw = np.empty(2 * len(x), np.int16)
+    raw[0::2] = np.round(x.real * scale)
+    raw[1::2] = np.round(x.imag * scale)
+    raw.tofile(path)
+
+
+def _conf_from_shipped(capture, keys: dict) -> str:
+    """conf/gps_l1_file.conf with its capture path replaced and ``keys``
+    appended (a later line wins)."""
+    lines = []
+    for ln in (ROOT / "conf" / "gps_l1_file.conf").read_text().splitlines():
+        if ln.startswith("SignalSource.filename="):
+            ln = f"SignalSource.filename={capture}"
+        lines.append(ln)
+    lines += [f"{k}={v}" for k, v in keys.items()]
+    return "\n".join(lines) + "\n"
+
+
+def _run_cli(conf_path, platform: str, *extra) -> tuple[str, str]:
+    """``python3 -m gnss_sdr_tpu_torch -c conf`` from the checkout; fails
+    the phase on a non-zero exit. Returns (stdout, stderr)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "gnss_sdr_tpu_torch", "-c", str(conf_path),
+         "--platform", platform, *extra],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        print(out.stdout[-3000:], out.stderr[-3000:], file=sys.stderr)
+        raise SystemExit(f"the CLI exited {out.returncode}")
+    return out.stdout, out.stderr
+
+
+def _summary(stdout: str) -> dict:
+    """The CLI's summary lines as numbers."""
+    got = {}
+    m = re.search(r"tracked PRNs: \[([\d, ]*)\]; tracking_dispatches=(\d+) "
+                  r"tracking_kernel_launches=(\d+) "
+                  r"multicorrelator_launches=(\d+)", stdout)
+    if m is None:
+        raise SystemExit(f"no summary line in the CLI's output: {stdout!r}")
+    got["tracked"] = [int(v) for v in m.group(1).split(",") if v.strip()]
+    got["dispatches"], got["k2"], got["k1"] = map(int, m.groups()[1:])
+    m = re.search(r"last fix: lat=([-\d.]+) lon=([-\d.]+) h=([-\d.]+) m",
+                  stdout)
+    if m is not None:
+        got["fix_llh"] = tuple(map(float, m.groups()))
+    return got
+
+
+def phase_cli(device, main_run: dict, cond_s: float) -> int:
+    """The CLI on the main phase's capture (checks above, phase 8), then a
+    conditioned run of ``cond_s`` seconds at 4 MSps. Returns the CLI's K2
+    launches."""
+    from gnss_sdr_tpu_torch.receiver.pvt import geodesy
+    from gnss_sdr_tpu_torch.receiver.pvt.rinex import (RinexNavReader,
+                                                       RinexNavWriter,
+                                                       RinexObsReader)
+    from gnss_sdr_tpu_torch.utils import scenario
+
+    platform = "cuda" if device.type == "cuda" else "cpu"
+    sc, x, rx = main_run["sc"], main_run["x"], main_run["rx"]
+    prns = main_run["prns"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        _write_ishort(tmp / "capture.ishort", x)
+        conf = tmp / "rx.conf"
+        conf.write_text(_conf_from_shipped(tmp / "capture.ishort", {
+            "SignalSource.sampling_frequency": 2000000,
+            "PVT.nmea_dump_filename": tmp / "out.nmea",
+            "PVT.kml_filename": tmp / "out.kml",
+            "PVT.rinex_obs_filename": tmp / "out.obs",
+            "PVT.rinex_nav_filename": tmp / "out.nav",
+            "PVT.trop_model": "OFF", "PVT.iono_model": "OFF"}))
+        t1 = time.perf_counter()
+        stdout, stderr = _run_cli(conf, platform)
+        cli_s = time.perf_counter() - t1
+        got = _summary(stdout)
+        nmea = (tmp / "out.nmea").read_text()
+        obs_prns = sorted({o["prn"] for _, ep in
+                           RinexObsReader(tmp / "out.obs").read_epochs()
+                           for o in ep})
+        nav = RinexNavReader(tmp / "out.nav").read()
+        # the main phase's ephemerides through the same writer and reader
+        w = RinexNavWriter(tmp / "main.nav")
+        for (sys_, _), e in rx.ephemerides.items():
+            w.write_ephemeris(e, system=sys_)
+        w.close()
+        main_nav = RinexNavReader(tmp / "main.nav").read()
+        eph_equal = (sorted(nav) == sorted(main_nav) and all(
+            dataclasses.asdict(nav[k]) == dataclasses.asdict(main_nav[k])
+            for k in nav))
+        checks = dict(device_line=f"device: {platform}" in stderr,
+                      gga=nmea.count("$GPGGA"), obs_prns=obs_prns,
+                      nav_ephemerides=len(nav), eph_equal_main=eph_equal)
+        err = {}
+        if "fix_llh" in got:
+            lat, lon, h = got["fix_llh"]
+            pos = geodesy.geodetic_to_ecef(np.deg2rad(lat), np.deg2rad(lon), h)
+            enu = geodesy.ecef_to_enu(pos - sc.rcv_ecef, *sc.rcv_llh[:2])
+            err = dict(err_2d_m=float(np.hypot(enu[0], enu[1])),
+                       err_3d_m=float(np.linalg.norm(enu)))
+        _line("cli", t0, run="capture", cli_seconds=f"{cli_s:.3f}",
+              tracked=got["tracked"], tracking_dispatches=got["dispatches"],
+              k2_launches=got["k2"], k1_launches=got["k1"],
+              **{k: f"{v:.3f}" for k, v in err.items()}, **checks)
+        # the CPU rehearsal's 3 s decode no navigation data: no observables
+        full = device.type == "cuda"
+        bad = [name for name, ok in (
+            ("device line", checks["device_line"]),
+            ("tracked PRNs", got["tracked"] == prns),
+            ("RINEX obs PRNs", not full or obs_prns == prns),
+            ("K2 launches", not full or got["k2"] == got["dispatches"] > 0),
+            ("K1 launches", got["k1"] == 0),
+            ("fix", not full or (err and err["err_2d_m"] < 2.0
+                                 and err["err_3d_m"] < 5.0)),
+            ("GGA sentences", not full or checks["gga"] > 0),
+            ("RINEX nav", not full or (len(nav) == len(prns) and eph_equal)))
+            if not ok]
+        if bad:
+            raise SystemExit(f"CLI run failed its checks: {bad}")
+
+        # the shipped rates: 4 MSps conditioned to 2 MSps
+        t0 = time.perf_counter()
+        sc4 = scenario.build_gps_l1_scenario(duration_s=cond_s, n_sats=6,
+                                             cn0_dbhz=47.0, fs=4.0e6)
+        _write_ishort(tmp / "capture4.ishort", sc4.generate(seed=123))
+        conf4 = tmp / "rx4.conf"
+        conf4.write_text(_conf_from_shipped(tmp / "capture4.ishort", {}))
+        t1 = time.perf_counter()
+        stdout, stderr = _run_cli(conf4, platform, "--max_chunks",
+                                  str(int(cond_s * 10)))
+        cli_s = time.perf_counter() - t1
+        got4 = _summary(stdout)
+        _line("cli", t0, run="conditioned_4msps", cli_seconds=f"{cli_s:.3f}",
+              tracked=got4["tracked"], tracking_dispatches=got4["dispatches"],
+              k2_launches=got4["k2"],
+              conditioning="conditioning 4000000 sps -> 2000000 sps" in stderr)
+        if got4["tracked"] != sorted(sc4.prns) or (
+                device.type == "cuda"
+                and not got4["k2"] == got4["dispatches"] > 0):
+            raise SystemExit(f"conditioned CLI run tracked {got4['tracked']}, "
+                             f"expected {sorted(sc4.prns)}")
+    return got["k2"]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
-                    help="rehearse phases 3, 4 and 6 on the CPU (plain "
+                    help="rehearse phases 3, 4, 6 and 8 on the CPU (plain "
                          "versions)")
     args = ap.parse_args(argv)
 
@@ -679,7 +877,7 @@ def main(argv=None) -> int:
         device = torch.device("cpu")
         phase_k1(device, correlator)
         phase_k2(device, with_k16=False)
-        phase_main(device, 3.0, check_fix=False)
+        phase_cli(device, phase_main(device, 3.0, check_fix=False), 0.5)
         return 0
 
     t0 = time.perf_counter()
@@ -717,6 +915,7 @@ def main(argv=None) -> int:
                                           *_final_carry_case(rx, x)))
     phase_stream(device, x, main_run["prns"], 12.0)
     phase_profile(rx, x)
+    cli_k2 = phase_cli(device, main_run, 2.0)
 
     a, k2c8 = timing["a_main_path"], timing_k2[8]
     record = {"kernels": [{
@@ -738,6 +937,7 @@ def main(argv=None) -> int:
         "source": "gnss_sdr_tpu_torch/csrc/tracking.cu",
         "replaces": "gnss_sdr_tpu/receiver/tracking.py:432",
         "launches": main_run["k2_launches"],
+        "cli_launches": cli_k2,
         "max_abs_err": k2_err["max_abs_err"],
         "float_tol_ratio": k2_err["float_tol_ratio"],
         "prompt_tol_ratio": k2_err["prompt_tol_ratio"],

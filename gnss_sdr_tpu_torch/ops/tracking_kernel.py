@@ -15,6 +15,11 @@ The carry crosses into the kernel as one ``[C, W]`` int32 buffer
 bools as 0/1, ``acc_corr [C, K, 2]`` and ``kf_p [C, 3, 3]`` flattened at the
 end. :func:`unpack_carry` is its exact inverse. ``kf_p`` and ``kf_acc`` pass
 through the kernel untouched (the Kalman carrier loop is not ported).
+
+The receiver keeps its carry in this packed form on the card between
+dispatches, so a dispatch (:func:`track_chunk_carry`) is one launch and two
+allocations, with the parameter block cached per configuration and shape;
+:func:`track_chunk_fused` takes and returns the ``TrackingState`` form.
 """
 
 from __future__ import annotations
@@ -84,23 +89,35 @@ def pack_carry(state) -> torch.Tensor:
                      dim=1)
 
 
-def unpack_carry(buf: torch.Tensor, like):
+# the fields that are not float32 (init_state's dtypes)
+_BOOL_FIELDS = ("active", "loss_of_lock")
+_INT_FIELDS = ("state", "sample_offset", "carr_phase_cycles",
+               "epochs_in_state", "epoch_count", "lock_fail", "ext_n",
+               "ext_anchor", "sec_len", "sec_anchor", "acc_cnt")
+
+
+def unpack_carry(buf: torch.Tensor, like=None):
     """The ``TrackingState`` held in ``buf`` (from :func:`pack_carry` or the
-    kernel); ``like`` (a carry) gives the tap count and the field dtypes.
-    Exact: floats are bitcast back; every field is contiguous."""
+    kernel), on ``buf``'s device; the tap count follows from its width and
+    must be that of ``like`` (a carry) when one is given. Exact: floats are
+    bitcast back; every field is contiguous."""
     from gnss_sdr_tpu_torch.receiver.tracking import TrackingState
 
     n_ch = buf.shape[0]
-    n_taps = like.acc_corr.shape[1]
     n = len(CARRY_FIELDS)
+    n_taps = (buf.shape[1] - n - 9) // 2
+    if buf.shape[1] != carry_width(n_taps):
+        raise ValueError(f"no tap count gives a carry of width {buf.shape[1]}")
+    if like is not None and like.acc_corr.shape[1] != n_taps:
+        raise ValueError(f"a carry of width {buf.shape[1]} holds {n_taps} "
+                         f"taps, not {like.acc_corr.shape[1]}")
     rows = buf.t().contiguous()                        # [W, C]
-    ref = {f: _field(like, f).dtype for f in CARRY_FIELDS}
 
     def col(name):
         w = rows[CARRY_FIELDS.index(name)]
-        if ref[name] == torch.bool:
+        if name in _BOOL_FIELDS:
             return w != 0
-        return w.view(torch.float32) if ref[name] == torch.float32 else w
+        return w if name in _INT_FIELDS else w.view(torch.float32)
 
     tail = buf[:, n:].contiguous().view(torch.float32)
     return TrackingState(
@@ -248,14 +265,19 @@ def _entry():
     return fn
 
 
+# make_params once per configuration and shape (a receiver dispatches with
+# at most a few; TrackingConfig is a frozen, hashable dataclass)
+cached_params = functools.lru_cache(maxsize=64)(make_params)
+
+
 def kernel_args(cfg, chunk, carry, code_tables, sec_tables, carry_out,
                 packed) -> tuple:
     """The C entry's arguments for checked tensors, writing ``carry_out``
     [C, W] int32 and ``packed`` [S, C, 13] float32 on the current stream.
     The parameter block is kept alive in the tuple."""
     n_ch, lt = code_tables.shape
-    params = make_params(cfg, n_ch, chunk.shape[0], lt,
-                         0 if sec_tables is None else sec_tables.shape[1])
+    params = cached_params(cfg, n_ch, chunk.shape[0], lt,
+                           0 if sec_tables is None else sec_tables.shape[1])
     return (params, ctypes.addressof(params), chunk.data_ptr(),
             code_tables.data_ptr(),
             None if sec_tables is None else sec_tables.data_ptr(),
@@ -272,26 +294,36 @@ def launch_kernel(args: tuple) -> None:
                            f"{err}")
 
 
-def track_chunk_fused(cfg, chunk: torch.Tensor, state,
+def track_chunk_carry(cfg, chunk: torch.Tensor, carry: torch.Tensor,
                       code_tables: torch.Tensor,
                       sec_tables: torch.Tensor | None = None):
-    """Run one dispatch of the tracking loop in one launch of K2 ->
-    (new_state, packed [S, C, 13]); ``chunk`` float32 [L, 2] on a CUDA
-    device, L >= chunk_len + n_max. Raises on anything else."""
+    """Run one dispatch of the tracking loop in one launch of K2 on the
+    packed carry -> (new carry [C, W] int32, packed [S, C, 13]); ``chunk``
+    float32 [L, 2] on a CUDA device, L >= chunk_len + n_max. Raises on
+    anything else."""
     global launches
-    carry = pack_carry(state)
     _check(cfg, chunk, carry, code_tables, sec_tables)
     if chunk.device.type != "cuda":
         raise ValueError(f"the fused tracking kernel runs on a CUDA device, "
                          f"not {chunk.device}")
     if chunk.data_ptr() % 8:
         raise ValueError("chunk must be 8-byte aligned (float2 loads)")
-    n_ch = code_tables.shape[0]
     carry_out = torch.empty_like(carry)
-    packed = torch.empty((cfg.n_steps, n_ch, PACKED_COLS),
+    packed = torch.empty((cfg.n_steps, code_tables.shape[0], PACKED_COLS),
                          dtype=torch.float32, device=chunk.device)
     with torch.cuda.device(chunk.device):
         launch_kernel(kernel_args(cfg, chunk, carry, code_tables, sec_tables,
                                   carry_out, packed))
     launches += 1
-    return unpack_carry(carry_out, state), packed
+    return carry_out, packed
+
+
+def track_chunk_fused(cfg, chunk: torch.Tensor, state,
+                      code_tables: torch.Tensor,
+                      sec_tables: torch.Tensor | None = None):
+    """:func:`track_chunk_carry` on a ``TrackingState`` -> (new_state,
+    packed [S, C, 13]): packs the carry before the launch and unpacks it
+    after."""
+    carry, packed = track_chunk_carry(cfg, chunk, pack_carry(state),
+                                      code_tables, sec_tables)
+    return unpack_carry(carry, state), packed

@@ -9,15 +9,20 @@ advances chunk by chunk; per chunk it runs
 The channel manager mirrors the reference's state machine (idle -> tracking,
 reacquire on loss; gnss_flowgraph.cc:1203-1366).
 
-This slice ports the single-signal-group GPS L1 C/A receiver. Every
-``ReceiverConfig`` field of the JAX package exists here; a field that selects
-a feature not yet ported raises ``NotImplementedError`` naming the field.
+This port covers the single-signal-group GPS L1 C/A receiver with its
+control plane (telecommands, assistance, output sinks) and the rate
+conditioner of ``run_file_source``. Every ``ReceiverConfig`` field of the
+JAX package exists here; a field that selects a feature not yet ported
+raises ``NotImplementedError`` naming the field.
 
 Device boundary: one upload per dispatch (int8 / packed-nibble / float32, as
 ``upload_bits`` says, dequantized on the device), one download of the packed
-tracking outputs per dispatch at consume time. The device is a constructor
-argument: ``Receiver(cfg)`` uses ``cuda:0`` and raises without a card;
-``Receiver(cfg, device="cpu")`` runs the plain PyTorch versions on the CPU.
+tracking outputs per dispatch at consume time. On the card the tracking
+carry stays on the device between dispatches in the packed form the fused
+tracking kernel reads and writes; it is unpacked only for host edits on
+channel events. The device is a constructor argument: ``Receiver(cfg)`` uses
+``cuda:0`` and raises without a card; ``Receiver(cfg, device="cpu")`` runs
+the plain PyTorch versions on the CPU.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from gnss_sdr_tpu_torch.models import codes
 from gnss_sdr_tpu_torch.ops import acquisition as acq_ops
 from gnss_sdr_tpu_torch.ops import fft as fft_ops
 from gnss_sdr_tpu_torch.ops import iq
+from gnss_sdr_tpu_torch.ops import tracking_kernel
+from gnss_sdr_tpu_torch.receiver import control
 from gnss_sdr_tpu_torch.receiver import tracking as trk
 from gnss_sdr_tpu_torch.receiver.observables import ChannelObservable, EpochRecord, ObservablesEngine
 from gnss_sdr_tpu_torch.receiver.pvt import geodesy as _geodesy_mod
@@ -103,9 +110,14 @@ class ReceiverConfig:
 
 def _check_ported(cfg: ReceiverConfig) -> None:
     """Raise for every field that selects a feature this port lacks."""
+    plan = [tuple(e) for e in cfg.signal_plan]
     unported = {
         "signal": cfg.signal != "1C",
-        "signal_plan": bool(cfg.signal_plan),
+        # one group, the primary signal's (what receiver_config_from_ini
+        # writes for a single-signal conf)
+        "signal_plan": bool(plan) and (
+            len(plan) > 1 or plan[0][:2] != (cfg.signal, cfg.n_channels)
+            or (len(plan[0]) > 2 and bool(plan[0][2]))),
         "n_mesh_devices": bool(cfg.n_mesh_devices and cfg.n_mesh_devices > 1),
         "tcp_connector": cfg.tcp_connector,
         "carrier_kf": cfg.carrier_kf,
@@ -129,17 +141,6 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the plain PyTorch path on the CPU")
     return torch.device("cuda", 0)
-
-
-def predicted_doppler(eph, rcv_ecef: np.ndarray, t_gps: float,
-                      carrier_freq_hz: float) -> float:
-    """Assisted-acquisition Doppler prediction from an ephemeris (reference:
-    pcps_assisted_acquisition / ControlThread::get_visible_sats)."""
-    pos, vel = eph.position_velocity(t_gps)
-    los = (pos - rcv_ecef)
-    los = los / np.linalg.norm(los)
-    rr = float(los @ vel)
-    return -rr / (constants.SPEED_OF_LIGHT_M_S / carrier_freq_hz)
 
 
 class Channel:
@@ -198,10 +199,25 @@ class Channel:
             return None
         return self._materialize(i)
 
+    @property
+    def records(self) -> list:
+        """Materialized record list (tests/status paths, not the hot loop)."""
+        if self._rec is None:
+            return []
+        return [self._materialize(i) for i in range(len(self._rec["start"]))]
+
+    def last_record(self) -> EpochRecord | None:
+        r = self._rec
+        if r is None or not len(r["start"]):
+            return None
+        return self._materialize(len(r["start"]) - 1)
+
 
 class SignalGroup:
     """Per-signal-family receiver state: tracking carry, code tables,
-    acquisition pool (reference: one GetChannel_* family per signal)."""
+    acquisition pool (reference: one GetChannel_* family per signal). On a
+    CUDA device the carry is K2's packed ``[C, W]`` int32 buffer, else a
+    TrackingState; the tracking module's functions take either."""
 
     def __init__(self, cfg: ReceiverConfig, signal: str, n_channels: int,
                  prns: tuple, global_id0: int, device: torch.device):
@@ -228,6 +244,8 @@ class SignalGroup:
         self.channels = [Channel(i, global_id0 + i) for i in range(n_channels)]
         self.trk_state = trk.init_state(n_channels, self.trk_cfg.n_taps,
                                         device=device)
+        if device.type == "cuda":
+            self.trk_state = tracking_kernel.pack_carry(self.trk_state)
         table_len = self.spec.code_length_chips * self.trk_cfg.table_rate
         self.code_tables = np.zeros((n_channels, table_len), np.float32)
         self.tables_rev = 0
@@ -248,6 +266,7 @@ class SignalGroup:
         # consecutive failed dwells per PRN: retry intervals grow
         # exponentially (5 chunks doubling to a 300-chunk cap)
         self.acq_fails: dict[int, int] = {}
+        self.pinned: dict[int, int] = {}   # local channel -> PRN
         self._vis_rank = None
 
     @property
@@ -326,6 +345,15 @@ class Receiver:
         self._buf_pos = 0
         self._frags: list = []
         self._frag_n = 0
+        # output hooks (printers / monitors): called as f(sol) and
+        # f(tick_sample, observables) respectively
+        self.fix_sinks: list = []
+        self.obs_sinks: list = []
+        # control plane (telecommands are polled between chunks)
+        self.control_queue = control.ControlQueue()
+        self.restart_requested = False
+        self.stop_requested = False
+        self.standby = False
 
     # ------------------------------------------------------------------ acq
     def _acq_window(self, g: SignalGroup) -> tuple[int, int]:
@@ -419,7 +447,8 @@ class Receiver:
                 if alm is None:
                     return None
                 eph = alm.to_ephemeris()
-            fd = predicted_doppler(eph, pos, tow, g.carrier_freq_for(p))
+            fd = control.predicted_doppler(eph, pos, tow,
+                                           g.carrier_freq_for(p))
             out.append(fd + g.if_freq_for(p) - self.cfg.if_freq_hz)
         return out
 
@@ -529,7 +558,15 @@ class Receiver:
             doppler = doppler_hz[int(idx)]
             if g.rx_cfg.acq_two_step:
                 doppler = self._refine_doppler(g, chunk, prn, delay, doppler)
-            self._assign_channel(g, idle.pop(0), prn, delay, doppler)
+            # honor channel pinning from set_ch_satellite telecommands
+            pinned_chs = [c for c in idle if g.pinned.get(c.ch_id) == prn]
+            free_chs = [c for c in idle if c.ch_id not in g.pinned]
+            pick = pinned_chs[0] if pinned_chs else (free_chs[0] if free_chs
+                                                     else None)
+            if pick is None:
+                continue
+            idle.remove(pick)
+            self._assign_channel(g, pick, prn, delay, doppler)
 
     def acq_fails_for(self, g: SignalGroup, prn: int) -> int:
         """Count of consecutive failed dwells for this PRN (post-increment:
@@ -670,6 +707,8 @@ class Receiver:
             obs = self.observables.compute(t, chans)
             if obs:
                 self.obs_log.append((t, obs))
+                for sink in self.obs_sinks:
+                    sink(t, obs)
             self._tick_count += 1
             if obs and self._tick_count % self._pvt_interval == 0:
                 self._run_pvt(obs)
@@ -685,6 +724,8 @@ class Receiver:
             apply_tropo=self.cfg.pvt_apply_tropo)
         if sol.valid:
             self.fixes.append(sol)
+            for sink in self.fix_sinks:
+                sink(sol)
 
     def harvest_nav(self) -> None:
         """Pull decoded ephemerides / iono / UTC / almanacs from the
@@ -775,26 +816,9 @@ class Receiver:
                 self._buf_pos = 0
                 self._frags, self._frag_n = [], 0
             chunk = self._buf[self._buf_pos: self._buf_pos + dlen + self.n_max]
-            if not (defer and k > 1):
-                # consume the PREVIOUS chunk first, before this chunk's
-                # acquisition can reassign a channel the consume drops
-                self.flush()
-            chunk_dev = self._upload(chunk)
-            for g in self.groups:
-                self._run_acquisition(g, chunk, chunk_dev)
-            pends = [(g, self._dispatch_tracking(g, chunk_dev, k))
-                     for g in self.groups]
-            if defer:
-                self._pending_q.append((pends, self._sample_base, dlen))
-                if k > 1:
-                    depth = max(2, int(self.cfg.pipeline_depth))
-                    while len(self._pending_q) >= depth:
-                        self._consume_chunk(*self._pending_q.pop(0))
-                else:
-                    while len(self._pending_q) > 1:
-                        self._consume_chunk(*self._pending_q.pop(0))
-            else:
-                self._consume_chunk(pends, self._sample_base, dlen)
+            self._dispatch_commands()
+            if not self.standby:
+                self._process_chunk(chunk, k, dlen, defer)
             self._buf_pos += dlen
             self._sample_base += dlen
             self._chunk_index += k
@@ -805,6 +829,31 @@ class Receiver:
                     log.info("status @ %.1f s: %s",
                              self._sample_base / self.cfg.fs,
                              self.status_text())
+
+    def _process_chunk(self, chunk: np.ndarray, k: int, dlen: int,
+                       defer: bool) -> None:
+        """Upload one dispatch's samples, run acquisition, enqueue tracking
+        and consume what is due."""
+        if not (defer and k > 1):
+            # consume the PREVIOUS chunk first, before this chunk's
+            # acquisition can reassign a channel the consume drops
+            self.flush()
+        chunk_dev = self._upload(chunk)
+        for g in self.groups:
+            self._run_acquisition(g, chunk, chunk_dev)
+        pends = [(g, self._dispatch_tracking(g, chunk_dev, k))
+                 for g in self.groups]
+        if defer:
+            self._pending_q.append((pends, self._sample_base, dlen))
+            if k > 1:
+                depth = max(2, int(self.cfg.pipeline_depth))
+                while len(self._pending_q) >= depth:
+                    self._consume_chunk(*self._pending_q.pop(0))
+            else:
+                while len(self._pending_q) > 1:
+                    self._consume_chunk(*self._pending_q.pop(0))
+        else:
+            self._consume_chunk(pends, self._sample_base, dlen)
 
     def _consume_chunk(self, pends, sample_base: int,
                        length: int | None = None) -> None:
@@ -818,7 +867,7 @@ class Receiver:
         unless acquisition work is due (then single chunks keep the dwell
         cadence at chunk_ms)."""
         k = max(1, int(self.cfg.dispatch_chunks))
-        if k == 1:
+        if k == 1 or self.standby:
             return 1
         for g in self.groups:
             if not any(ch.state == "idle" for ch in g.channels):
@@ -841,6 +890,49 @@ class Receiver:
         while self._pending_q:
             self._consume_chunk(*self._pending_q.pop(0))
 
+    # ------------------------------------------------------------- control
+    def _dispatch_commands(self) -> None:
+        """Apply the telecommands queued since the last chunk (JAX package
+        receiver.py:1485-1525)."""
+        events = self.control_queue.pop_all()
+        if events:
+            # telecommands mutate channel/group state; retire any deferred
+            # chunk first so drops/restarts see consistent bookkeeping
+            self.flush()
+        for ev in events:
+            log.info("telecommand: %s %s", ev.command, ev.args)
+            if ev.command == "standby":
+                self.standby = True
+                for g in self.groups:
+                    for ch in g.channels:
+                        if ch.state == "tracking":
+                            self._drop_channel(g, ch)
+            elif ev.command in ("coldstart", "warmstart", "hotstart"):
+                self.standby = False
+                if ev.command == "coldstart":
+                    self.ephemerides.clear()
+                    self.iono = None
+                for g in self.groups:
+                    for ch in g.channels:
+                        if ch.state == "tracking":
+                            self._drop_channel(g, ch)
+                    g.acq_backoff.clear()
+                    g.acq_fails.clear()
+            elif ev.command == "reset":
+                self.restart_requested = True
+            elif ev.command in ("stop", "quit"):
+                # keyboard 'q' / stop telecommand: end the run loop without
+                # requesting a harness restart
+                self.stop_requested = True
+            elif ev.command == "set_ch_satellite":
+                ch_id, prn = ev.args
+                for g in self.groups:
+                    for ch in g.channels:
+                        if ch.global_id == ch_id:
+                            g.pinned[ch.ch_id] = prn
+                            if prn not in g.acq_pool:
+                                g.acq_pool.append(prn)
+
     def status_text(self) -> str:
         f = self.latest_fix()
         tracked = ",".join(str(p) for p in self.tracked_prns())
@@ -850,25 +942,99 @@ class Receiver:
                 f"lon={np.degrees(f.lon_rad):.6f} h={f.height_m:.1f} "
                 f"sats={f.n_sats} pdop={f.pdop:.2f}; tracking [{tracked}]")
 
+    def close_dumps(self) -> None:
+        """Close the tracing dumps: none while ``dump_dir`` is unported."""
+
+    def close(self) -> None:
+        """Release external resources (the port holds none yet: no TCP
+        tracking peers, no dumps)."""
+        self.close_dumps()
+
+    def checkpoint(self, path) -> None:
+        """Persist assistance data (ephemeris/almanac/iono + last position
+        and time) for warm/hot start."""
+        fix = self.latest_fix()
+        control.save_assistance(
+            path, self.ephemerides, self.iono,
+            almanacs=self.almanacs,
+            position_ecef=(fix.pos_ecef if fix is not None
+                           else self.assist_pos),
+            tow_s=(fix.tow_s if fix is not None else self.assist_tow))
+
+    def restore(self, path) -> None:
+        self.apply_assistance(control.load_assistance(path))
+
+    def apply_assistance(self, a) -> None:
+        """Merge an Assistance record (JSON checkpoint) into the warm-start
+        state."""
+        self.ephemerides.update(a.ephemerides)
+        self.almanacs.update(a.almanacs)
+        self.acq_assist.update(getattr(a, "acq", {}) or {})
+        if a.iono is not None:
+            self.iono = a.iono
+        if a.position_ecef is not None:
+            self.assist_pos = a.position_ecef
+            self.assist_tow = a.tow_s
+
     def run_source(self, source, max_chunks: int | None = None) -> None:
         """Stream ``source`` (an object with ``read(n)`` returning complex64
-        samples at the internal rate) through the receiver to its end."""
-        n = 0
-        while max_chunks is None or n < max_chunks:
-            block = source.read(self.chunk_len)
-            if len(block) == 0:
-                break
-            self.process(block, defer=True)
-            n += 1
-        self.drain()
+        samples at the internal rate) through the receiver to its end, a
+        stop or a reset request."""
+        self._run_pipelined(source, None, self.chunk_len, max_chunks)
+
+    def _run_pipelined(self, source, cond, block_len: int,
+                       max_chunks: int | None) -> None:
+        """Double-buffered chunk loop: a producer thread reads and
+        rate-conditions block k+1 while the receiver processes block k (the
+        JAX package's default loop, receiver.py:1609-1656); it stops at the
+        source's end, after ``max_chunks`` blocks, or on a stop or reset
+        request."""
+        import queue as queue_mod
+        import threading
+
+        q: queue_mod.Queue = queue_mod.Queue(maxsize=2)
+        stop = threading.Event()
+
+        def producer():
+            n = 0
+            try:
+                while ((max_chunks is None or n < max_chunks)
+                       and not stop.is_set()):
+                    block = source.read(block_len)
+                    if len(block) < (2 if cond is not None else 1):
+                        break
+                    q.put(cond(block) if cond is not None else block)
+                    n += 1
+            finally:
+                q.put(None)                  # end-of-stream sentinel
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while not (self.restart_requested or self.stop_requested):
+                block = q.get()
+                if block is None:
+                    break
+                self.process(block, defer=True)
+            self.drain()
+        finally:
+            stop.set()
+            # drain so a blocked producer can observe the stop flag
+            try:
+                while q.get_nowait() is not None:
+                    pass
+            except queue_mod.Empty:
+                pass
+            t.join(timeout=5.0)
 
     def run_file_source(self, source, max_chunks: int | None = None) -> None:
-        """Stream a file source; its rate must equal the internal rate until
-        input conditioning (resampling) is ported."""
-        cond, _ = make_rate_conditioner(source.fs, self.cfg.fs, self.chunk_len)
-        if cond is not None:
-            raise NotImplementedError("rate conditioning is not ported yet")
-        self.run_source(source, max_chunks)
+        """Run from a source whose rate may differ from the internal rate:
+        a decimating FIR (integer ratios) or a polyphase fractional
+        resampler bridges the rates on the receiver's device (reference
+        SignalConditioner -> Resampler)."""
+        cond, block_len = make_rate_conditioner(source.fs, self.cfg.fs,
+                                                self.chunk_len, self.device)
+        self._run_pipelined(source, cond, block_len, max_chunks)
 
     # ------------------------------------------------------------- queries
     def tracked_prns(self) -> list[int]:
@@ -880,11 +1046,33 @@ class Receiver:
 
 
 def make_rate_conditioner(source_fs: float, target_fs: float,
-                          chunk_len: int):
-    """(cond, block_len) bridging the source rate to the internal rate:
-    (None, chunk_len) when they match. Resampling (the JAX package's FIR /
-    fractional resampler) is ported with input conditioning."""
-    if abs(source_fs / target_fs - 1.0) < 1e-9:
+                          chunk_len: int, device=None):
+    """Rate-bridging conditioner from the source rate to the internal rate
+    (JAX package receiver.py:1696-1728), running on ``device``.
+
+    Returns ``(cond, block_len)``: ``cond`` maps a source-rate block to a
+    target-rate split-IQ block (None when the rates already match) and
+    ``block_len`` is the source-rate read size that conditions to ~one
+    chunk."""
+    from gnss_sdr_tpu_torch.ops.fir import (StreamingFir,
+                                            StreamingFractionalResampler,
+                                            design_lowpass)
+
+    ratio = source_fs / target_fs
+    if abs(ratio - 1.0) < 1e-9:
         return None, chunk_len
-    raise NotImplementedError(
-        f"resampling {source_fs} -> {target_fs} Hz is not ported yet")
+    dev = resolve_device(device)
+    decim = int(round(ratio))
+    if abs(ratio - decim) < 1e-9:
+        taps = design_lowpass(decim * 16 + 1, 0.8 / decim)
+        return StreamingFir(taps, decim=decim, device=dev), chunk_len * decim
+    if ratio > 1.0:
+        # downsampling: anti-alias at the output Nyquist, then
+        # fractional interpolation
+        lp = StreamingFir(design_lowpass(33, 0.8 / ratio), device=dev)
+        frac = StreamingFractionalResampler(source_fs, target_fs, device=dev)
+        return (lambda x: frac(lp(x))), int(round(chunk_len * ratio))
+    # upsampling: no anti-alias filter needed (the input band is
+    # already inside the output Nyquist)
+    frac = StreamingFractionalResampler(source_fs, target_fs, device=dev)
+    return frac, max(2, int(round(chunk_len * ratio)))

@@ -225,11 +225,13 @@ def state_from_numpy(mapping, device) -> TrackingState:
     return TrackingState(**fields)
 
 
-def state_to_numpy(state: TrackingState) -> TrackingState:
-    """Writable host (numpy) copy of a carry, same structure."""
+def state_to_numpy(state) -> TrackingState:
+    """Writable host (numpy) copy of a carry, same structure; ``state`` is a
+    TrackingState or K2's packed carry."""
     def conv(t):
         return t.detach().cpu().numpy().copy()
 
+    state = as_state(state)
     fields = {}
     for name in TrackingState._fields:
         v = getattr(state, name)
@@ -238,6 +240,28 @@ def state_to_numpy(state: TrackingState) -> TrackingState:
         else:
             fields[name] = conv(v)
     return TrackingState(**fields)
+
+
+def as_state(carry) -> TrackingState:
+    """The TrackingState form of a carry: ``carry`` itself, or the unpacked
+    form of K2's packed ``[C, W]`` int32 carry (on its device)."""
+    if isinstance(carry, torch.Tensor):
+        return tracking_kernel.unpack_carry(carry)
+    return carry
+
+
+def _host_edit(state, edit):
+    """Apply ``edit`` (which changes a writable numpy carry in place) to a
+    carry in either form and return it in the same form on the same device.
+    The packed form is pack(edit(unpack)), made on the host: one copy down
+    and one up."""
+    packed = isinstance(state, torch.Tensor)
+    st = state_to_numpy(state.cpu() if packed else state)
+    edit(st)
+    if packed:
+        return tracking_kernel.pack_carry(
+            state_from_numpy(st, "cpu")).to(state.device)
+    return state_from_numpy(st, _device_of(state))
 
 
 def _device_of(state: TrackingState):
@@ -311,40 +335,40 @@ def start_channel(state: TrackingState, ch: int, *, code_freq: float,
                   if_freq_hz: float = 0.0) -> TrackingState:
     """Acq->trk handoff for one channel (reference:
     TrackingInterface::start_tracking, dll_pll state 1 pull-in init). A host
-    edit on channel events only: the carry is copied to numpy, edited, and
-    moved back to its device."""
-    st = state_to_numpy(state)
-    st.active[ch] = True
-    st.state[ch] = PULL_IN
-    st.sample_offset[ch] = sample_offset
-    st.rem_code_phase[ch] = rem_code_phase
-    st.code_freq[ch] = code_freq
-    st.carrier_freq[ch] = if_freq_hz + doppler_hz
-    st.if_freq[ch] = if_freq_hz
-    st.carr_phase_frac[ch] = 0.0
-    st.carr_phase_cycles[ch] = 0
-    st.dll.acc1[ch] = 0.0
-    st.pll.acc1[ch] = if_freq_hz + doppler_hz
-    st.pll.acc2[ch] = 0.0
-    st.prev_prompt[ch, :] = 0.0
-    st.cn0.ema_abs_i[ch] = 0.0
-    st.cn0.ema_p2[ch] = 1e-12
-    st.cn0.ema_i2_minus_q2[ch] = 0.0
-    st.cn0.ema_i2_plus_q2[ch] = 1e-12
-    st.epochs_in_state[ch] = 0
-    st.epoch_count[ch] = 0
-    st.lock_fail[ch] = 0
-    st.loss_of_lock[ch] = False
-    st.ext_n[ch] = 1
-    st.ext_anchor[ch] = 0
-    st.sec_len[ch] = 0
-    st.sec_anchor[ch] = 0
-    st.acc_corr[ch] = 0.0
-    st.acc_dt[ch] = 0.0
-    st.acc_cnt[ch] = 0
-    st.kf_p[ch] = kalman.kf_init_cov(1)[0]
-    st.kf_acc[ch] = 0.0
-    return state_from_numpy(st, _device_of(state))
+    edit on channel events only (:func:`_host_edit`), on a carry in either
+    form."""
+    def edit(st):
+        st.active[ch] = True
+        st.state[ch] = PULL_IN
+        st.sample_offset[ch] = sample_offset
+        st.rem_code_phase[ch] = rem_code_phase
+        st.code_freq[ch] = code_freq
+        st.carrier_freq[ch] = if_freq_hz + doppler_hz
+        st.if_freq[ch] = if_freq_hz
+        st.carr_phase_frac[ch] = 0.0
+        st.carr_phase_cycles[ch] = 0
+        st.dll.acc1[ch] = 0.0
+        st.pll.acc1[ch] = if_freq_hz + doppler_hz
+        st.pll.acc2[ch] = 0.0
+        st.prev_prompt[ch, :] = 0.0
+        st.cn0.ema_abs_i[ch] = 0.0
+        st.cn0.ema_p2[ch] = 1e-12
+        st.cn0.ema_i2_minus_q2[ch] = 0.0
+        st.cn0.ema_i2_plus_q2[ch] = 1e-12
+        st.epochs_in_state[ch] = 0
+        st.epoch_count[ch] = 0
+        st.lock_fail[ch] = 0
+        st.loss_of_lock[ch] = False
+        st.ext_n[ch] = 1
+        st.ext_anchor[ch] = 0
+        st.sec_len[ch] = 0
+        st.sec_anchor[ch] = 0
+        st.acc_corr[ch] = 0.0
+        st.acc_dt[ch] = 0.0
+        st.acc_cnt[ch] = 0
+        st.kf_p[ch] = kalman.kf_init_cov(1)[0]
+        st.kf_acc[ch] = 0.0
+    return _host_edit(state, edit)
 
 
 def set_extension(state: TrackingState, ch: int, ext_n: int,
@@ -353,18 +377,18 @@ def set_extension(state: TrackingState, ch: int, ext_n: int,
     windows cover epochs [anchor + k*ext_n, anchor + (k+1)*ext_n)
     (reference: extended-integration handoff after bit sync,
     dll_pll_veml_tracking.cc state 3). Host edit."""
-    st = state_to_numpy(state)
-    st.ext_n[ch] = max(1, int(ext_n))
-    st.ext_anchor[ch] = int(anchor_epoch)
-    st.acc_corr[ch] = 0.0
-    st.acc_dt[ch] = 0.0
-    st.acc_cnt[ch] = 0
-    # re-initialize the loop filters at the mode switch (reference:
-    # d_carrier_loop_filter.initialize() on the extended handoff)
-    st.pll.acc1[ch] = st.carrier_freq[ch]
-    st.pll.acc2[ch] = 0.0
-    st.dll.acc1[ch] = 0.0
-    return state_from_numpy(st, _device_of(state))
+    def edit(st):
+        st.ext_n[ch] = max(1, int(ext_n))
+        st.ext_anchor[ch] = int(anchor_epoch)
+        st.acc_corr[ch] = 0.0
+        st.acc_dt[ch] = 0.0
+        st.acc_cnt[ch] = 0
+        # re-initialize the loop filters at the mode switch (reference:
+        # d_carrier_loop_filter.initialize() on the extended handoff)
+        st.pll.acc1[ch] = st.carrier_freq[ch]
+        st.pll.acc2[ch] = 0.0
+        st.dll.acc1[ch] = 0.0
+    return _host_edit(state, edit)
 
 
 def set_secondary(state: TrackingState, sec_tables: np.ndarray, ch: int,
@@ -373,22 +397,23 @@ def set_secondary(state: TrackingState, sec_tables: np.ndarray, ch: int,
     +-1) repeats with period len(chips), aligned so chip 0 multiplies epochs
     where (epoch - anchor) % len == 0. Mutates the host ``sec_tables[ch]``
     in place (the caller re-uploads it)."""
-    st = state_to_numpy(state)
     chips = np.asarray(chips, np.float32)
     if chips.min() >= 0.0:
         chips = 1.0 - 2.0 * chips          # 0/1 -> +1/-1 chip convention
     sec_tables[ch, :] = 1.0
     sec_tables[ch, : len(chips)] = chips
-    st.sec_len[ch] = len(chips)
-    st.sec_anchor[ch] = int(anchor_epoch)
-    return state_from_numpy(st, _device_of(state))
+
+    def edit(st):
+        st.sec_len[ch] = len(chips)
+        st.sec_anchor[ch] = int(anchor_epoch)
+    return _host_edit(state, edit)
 
 
 def stop_channel(state: TrackingState, ch: int) -> TrackingState:
-    st = state_to_numpy(state)
-    st.active[ch] = False
-    st.state[ch] = STANDBY
-    return state_from_numpy(st, _device_of(state))
+    def edit(st):
+        st.active[ch] = False
+        st.state[ch] = STANDBY
+    return _host_edit(state, edit)
 
 
 def track_chunk_packed(cfg: TrackingConfig, chunk: torch.Tensor,
@@ -396,22 +421,30 @@ def track_chunk_packed(cfg: TrackingConfig, chunk: torch.Tensor,
                        sec_tables: torch.Tensor | None = None,
                        slab: int | None = None):
     """Slice the shared uploaded chunk to this group's slab, run the tracking
-    loop and pack the host outputs: (new_state, packed [S, C, 13]).
+    loop and pack the host outputs: (new carry, packed [S, C, 13]).
 
-    CUDA tensors go through the fused tracking kernel (K2,
-    ops/tracking_kernel.py): one launch for the whole dispatch, which writes
-    the packed rows itself. CPU tensors run the eager loop
-    :func:`track_chunk`, K2's plain version."""
+    ``state`` is a TrackingState or K2's packed ``[C, W]`` int32 carry; the
+    new carry comes back in the same form. CUDA tensors go through the fused
+    tracking kernel (K2, ops/tracking_kernel.py): one launch for the whole
+    dispatch, which writes the packed rows itself; the packed carry stays as
+    it is, a TrackingState is packed and unpacked around the launch. CPU
+    tensors run the eager loop :func:`track_chunk`, K2's plain version."""
     if slab is not None:
         chunk = chunk[:slab]
     chunk = iq.as_iq2(chunk)
+    packed_carry = isinstance(state, torch.Tensor)
     if chunk.device.type == "cuda":
-        return tracking_kernel.track_chunk_fused(cfg, chunk, state,
-                                                 code_tables, sec_tables)
+        run = (tracking_kernel.track_chunk_carry if packed_carry
+               else tracking_kernel.track_chunk_fused)
+        return run(cfg, chunk, state, code_tables, sec_tables)
     if chunk.device.type != "cpu":
         raise ValueError(f"unsupported device {chunk.device}")
-    new_state, out = track_chunk(cfg, chunk, state, code_tables, sec_tables)
-    return new_state, pack_host_outputs(out, new_state.loss_of_lock)
+    new_state, out = track_chunk(cfg, chunk, as_state(state), code_tables,
+                                 sec_tables)
+    packed = pack_host_outputs(out, new_state.loss_of_lock)
+    if packed_carry:
+        return tracking_kernel.pack_carry(new_state), packed
+    return new_state, packed
 
 
 def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,

@@ -75,6 +75,9 @@ def test_run_file_source_equals_run_source(tmp_path):
             ra = ca.latest_record_before(a._sample_base)
             rb = cb.latest_record_before(b._sample_base)
             assert ra == rb
-    with pytest.raises(NotImplementedError, match="resampling"):
-        receiver().run_file_source(
-            tsrc.FileSignalSource(path, "gr_complex", 4e6))
+    # a source at twice the internal rate is decimated by 2 on the way in:
+    # two 200 ms blocks give 400 ms at 2 MSps, one chunk plus its halo
+    c = receiver()
+    c.run_file_source(tsrc.FileSignalSource(path, "gr_complex", 4e6),
+                      max_chunks=2)
+    assert c._sample_base == c.chunk_len

@@ -47,3 +47,26 @@ def test_port_sources_name_no_jax_import():
         ROOT / "chip_smoke.py"]
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert not hits, hits
+
+
+# the CLI slice's modules: the probe above imports each of them
+CLI_MODULES = (
+    "gnss_sdr_tpu_torch.__main__", "gnss_sdr_tpu_torch.config.ini",
+    "gnss_sdr_tpu_torch.config.registry", "gnss_sdr_tpu_torch.ops.fir",
+    "gnss_sdr_tpu_torch.receiver.pvt.gpstime",
+    "gnss_sdr_tpu_torch.receiver.pvt.nmea",
+    "gnss_sdr_tpu_torch.receiver.pvt.tracks",
+    "gnss_sdr_tpu_torch.receiver.pvt.rinex",
+    "gnss_sdr_tpu_torch.models.nav.fec",
+    "gnss_sdr_tpu_torch.receiver.pvt.rtcm", "gnss_sdr_tpu_torch.io.monitor",
+    "gnss_sdr_tpu_torch.io.monitor_pb2", "gnss_sdr_tpu_torch.receiver.control",
+    "gnss_sdr_tpu_torch.receiver.outputs")
+
+
+def test_cli_modules_are_walked():
+    import pkgutil
+
+    import gnss_sdr_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(gnss_sdr_tpu_torch.__path__,
+                                                   "gnss_sdr_tpu_torch.")}
+    assert set(CLI_MODULES) <= names, set(CLI_MODULES) - names

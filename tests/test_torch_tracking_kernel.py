@@ -265,6 +265,69 @@ def test_cuda_kernel_matches_eager_plain(extended):
     _assert_carry_close(new, ref_state)
 
 
+def test_host_edits_on_the_packed_carry():
+    """start_channel, stop_channel (the receiver's _drop_channel) and
+    set_extension on the packed carry give pack() of the same edits on the
+    TrackingState, and unpack_carry inverts pack_carry after each."""
+    st = ttrk.init_state(4, 3, device="cpu")
+    buf = tk.pack_carry(st)
+    edits = [
+        lambda c: ttrk.start_channel(c, 1, code_freq=1.0231e6,
+                                     doppler_hz=-1500.0, sample_offset=77,
+                                     rem_code_phase=0.25),
+        lambda c: ttrk.start_channel(c, 3, code_freq=1.0229e6,
+                                     doppler_hz=3100.0, sample_offset=-5),
+        lambda c: ttrk.set_extension(c, 1, 20, 13),
+        lambda c: ttrk.stop_channel(c, 3),
+    ]
+    for edit in edits:
+        st, buf = edit(st), edit(buf)
+        assert isinstance(buf, torch.Tensor) and buf.dtype == torch.int32
+        assert torch.equal(buf, tk.pack_carry(st))
+        _assert_carry_close(tk.unpack_carry(buf), st, exact_floats=True)
+    assert ttrk.state_to_numpy(buf).active.tolist() == [False, True, False,
+                                                        False]
+
+
+def test_cpu_dispatch_on_the_packed_carry(handoff):
+    """track_chunk_packed returns the carry in the form it was given; the
+    packed form is the eager loop's carry, packed."""
+    cfg, state = handoff["cfg"], handoff["state"]
+    chunk = torch.from_numpy(handoff["chunk"])
+    tables = torch.from_numpy(handoff["tables"])
+    sec = torch.from_numpy(handoff["sec"])
+    new, packed = ttrk.track_chunk_packed(cfg, chunk, state, tables, sec)
+    buf, packed_b = ttrk.track_chunk_packed(cfg, chunk, tk.pack_carry(state),
+                                            tables, sec)
+    assert torch.equal(buf, tk.pack_carry(new))
+    assert torch.equal(packed_b.view(torch.int32), packed.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunks", [1, 16])
+def test_cuda_packed_dispatch_matches_unpacked(chunks):
+    """On the card, the receiver's dispatch on the device-resident packed
+    carry (one launch, no packing) gives the unpacked dispatch's packed
+    outputs and final carry bit for bit, over a 102-step and a 1602-step
+    dispatch."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    dev = torch.device("cuda", 0)
+    case = scenario.tracking_handoff_case(dev, chunks=chunks)
+    cfg, state = case["cfg"], case["state"]
+    assert cfg.n_steps == (102 if chunks == 1 else 1602)
+    chunk = torch.from_numpy(case["chunk"]).to(dev)
+    tables = torch.from_numpy(case["tables"]).to(dev)
+    new, packed = ttrk.track_chunk_packed(cfg, chunk, state, tables)
+    before = tk.launches
+    buf, packed_b = ttrk.track_chunk_packed(cfg, chunk, tk.pack_carry(state),
+                                            tables)
+    assert tk.launches == before + 1
+    assert buf.device == dev and buf.dtype == torch.int32
+    assert torch.equal(packed_b.view(torch.int32), packed.view(torch.int32))
+    assert torch.equal(buf, tk.pack_carry(new))
+
+
 def _bound_ratio(a, b) -> float:
     """max |a - b| / (1e-4 + 1e-4 |b|): at most 1 within the tolerance."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
