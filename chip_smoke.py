@@ -20,10 +20,15 @@ Phases, one line each, with their seconds:
             tests/test_correlator.py).
 4. K2       the fused tracking kernel against its plain version (the eager
             loop with the plain correlator) from the same carry on the same
-            chunk: the open-loop handoff of 5 satellites on 6 channels, plain
-            and with extended integration + a secondary code (102 steps,
-            pull-in reaching WIDE at step 100), and a dispatch of 16 chunks
-            (1602 steps); after the main phase, the receiver's final carry
+            chunk: the open-loop handoff of 5 GPS L1 satellites on 6
+            channels, plain and with extended integration + a secondary code
+            (102 steps, pull-in reaching WIDE at step 100), and a dispatch of
+            16 chunks (1602 steps); Galileo E1 at 4 MSps (27 steps, n_max
+            16064, the tiled window): (e) E1-B with VEML taps, (f) E1-C pilot
+            tracking with the E1-B data prompt, alone and with extended
+            integration + the CS25 wipe, (g) one two-group dispatch (GPS at
+            4 MSps + E1 pilot on one shared chunk, one launch per group);
+            after the main and hybrid phases, the receivers' final carries
             (channels in NARROW_TRACK). Packed int32 columns, valid, the loss
             flag and the carry's int / bool fields equal; float columns and
             float carry fields within rtol 1e-4 / atol 1e-4; the prompt
@@ -32,9 +37,10 @@ Phases, one line each, with their seconds:
 5. timing   K1 and its plain version at shapes (a) and (b), CUDA events over
             500 launches each after a warm-up, in turns (plain, kernel,
             kernel, plain), beside the bound computed from the shapes; K2
-            per 100 ms chunk at C=8 and C=128, in turns with the eager loop
-            on the plain correlator and the eager loop on K1, beside K2's
-            bound.
+            per 100 ms chunk at the GPS shape (C=8 and C=128) and the E1
+            pilot shape (C=6 and C=128), in turns with the eager loop on the
+            plain correlator (and, for GPS, the eager loop on K1), beside
+            K2's bound.
 6. main     the port's receiver on a generated 28 s, 6-satellite, 47 dB-Hz
             GPS L1 C/A scenario at 2 MSps (seed 123): all satellites tracked,
             ephemerides decoded, fixes within 2D < 2 m / 3D < 5 m of the
@@ -59,6 +65,13 @@ Phases, one line each, with their seconds:
             tracking dispatch. Then the shipped conf/gps_l1_file.conf rates
             (4 MSps conditioned to 2 MSps) on 2 s of the scenario generated
             at 4 MSps, --max_chunks 20: all 6 PRNs acquired and tracking.
+9. hybrid   the in-process hybrid receiver (6 GPS + 6 Galileo channels) on
+            tests/test_e2e_hybrid.py's 26 s, 4 MSps, 4 + 4 satellite
+            scenario with the E1-C pilot in the signal: each system tracked,
+            ephemerides, a mixed fix within budget with |ISB| < 1 us, one K2
+            launch per group dispatch; the host seconds of each stage. Then
+            the shipped conf/hybrid_gps_galileo.conf through the CLI on that
+            capture (phase_cli_hybrid).
 
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit, then the result line. Float32 matrix products run in
@@ -286,6 +299,20 @@ def k2_case(device, **kw) -> tuple:
             _tensor(c["tables"], device), _tensor(c["sec"], device))
 
 
+def k2_two_group_case(device) -> dict:
+    """One hybrid dispatch: GPS L1 C/A at 4 MSps (n_max 4064) and Galileo
+    E1 with pilot tracking (n_max 16064) on one shared chunk (the two
+    handoff cases' signals summed), each group on its slab."""
+    g = k2_case(device, signal="1C", fs=4.0e6)
+    e = k2_case(device, signal="1B", pilot=True, seed=12)
+    chunk = e[1].clone()
+    chunk[: g[1].shape[0]] += g[1]
+    cfgs = (g[0], e[0])
+    return dict(cfgs=cfgs, chunk=chunk, states=(g[2], e[2]),
+                tables=(g[3], e[3]), secs=(g[4], e[4]),
+                slabs=tuple(c.chunk_len + c.n_max for c in cfgs))
+
+
 def _carry_leaves(state):
     from gnss_sdr_tpu_torch.receiver import tracking as trk
 
@@ -394,15 +421,76 @@ def _worst(a: dict | None, b: dict) -> dict:
     return {k: max(b[k], a[k] if a else 0.0) for k in keys}
 
 
+def phase_k2_two_groups(device) -> dict:
+    """Case (g): track_multi_packed's one dispatch of two groups (one K2
+    launch each) against each group's eager loop with the plain correlator
+    on its slab of the shared chunk."""
+    from gnss_sdr_tpu_torch.ops import correlator
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    t0 = time.perf_counter()
+    c = k2_two_group_case(device)
+    before = tk.launches
+    new, flat = trk.track_multi_packed(c["cfgs"], c["chunk"], c["states"],
+                                       c["tables"], c["secs"], c["slabs"])
+    launched = tk.launches - before
+    worst, bitwise, off = None, True, 0
+    for cfg, st, tab, sec, slab, ns in zip(c["cfgs"], c["states"],
+                                           c["tables"], c["secs"],
+                                           c["slabs"], new):
+        rs, out = trk.track_chunk(cfg, c["chunk"][:slab], st, tab, sec,
+                                  correlate=correlator.epoch_correlate_plain)
+        ref = trk.pack_host_outputs(out, rs.loss_of_lock)
+        n = ref.numel()
+        got = flat[off: off + n].reshape(ref.shape)
+        off += n
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        r = k2_compare(got, ref, ns, rs)
+        if r["bad"]:
+            raise SystemExit(f"K2 disagrees with its plain version in the "
+                             f"two-group dispatch: {r['bad']}")
+        bitwise = bitwise and torch.equal(got.view(torch.int32),
+                                          ref.view(torch.int32)) \
+            and torch.equal(tk.pack_carry(ns), tk.pack_carry(rs))
+        worst = _worst(worst, r)
+    if off != flat.numel():
+        raise SystemExit("two-group dispatch: flat output of the wrong size")
+    _line("K2", t0, case="g_two_groups", groups="1C@4MSps+1B_pilot",
+          steps=[cfg.n_steps for cfg in c["cfgs"]],
+          n_max=[cfg.n_max for cfg in c["cfgs"]],
+          launches=launched if device.type == "cuda" else 0,
+          max_abs_err=f"{worst['max_abs_err']:.3e}",
+          float_tol_ratio=f"{worst['float_tol_ratio']:.3e}",
+          prompt_tol_ratio=f"{worst['prompt_tol_ratio']:.3e}",
+          bitwise=bitwise, ok=True)
+    if device.type == "cuda" and launched != 2:
+        raise SystemExit(f"two-group dispatch launched K2 {launched} times")
+    return worst
+
+
+# K2 cases: GPS L1 C/A at 2 MSps (plain, extended + secondary code, a
+# 16-chunk dispatch), then this slice's Galileo E1 shapes at 4 MSps, C=6,
+# 27 steps, n_max 16064 (the tiled window): (e) E1-B with VEML taps, (f)
+# pilot tracking on E1-C with the E1-B data prompt, and pilot tracking with
+# extended integration and the CS25 wipe
+K2_CASES = (("plain", {}), ("extended", dict(extended=True)),
+            ("k16", dict(chunks=16)),
+            ("e_e1b", dict(signal="1B")),
+            ("f_e1_pilot", dict(signal="1B", pilot=True)),
+            ("f_e1_pilot_extended", dict(signal="1B", pilot=True,
+                                         extended=True)))
+
+
 def phase_k2(device, with_k16: bool) -> dict:
     worst = None
-    for name, kw in (("plain", {}), ("extended", dict(extended=True)),
-                     ("k16", dict(chunks=16))):
+    for name, kw in K2_CASES:
         if name == "k16" and not with_k16:
             continue
         worst = _worst(worst, phase_k2_case(name, device,
                                             *k2_case(device, **kw)))
-    return worst
+    return _worst(worst, phase_k2_two_groups(device))
 
 
 def k2_work(cfg, out, n_ch: int, table_len: int, width: int) -> tuple:
@@ -419,25 +507,34 @@ def k2_work(cfg, out, n_ch: int, table_len: int, width: int) -> tuple:
     np.add.at(covered, np.clip(start, 0, length), 1)
     np.add.at(covered, np.clip(start + ns, 0, length), -1)
     window = int(np.count_nonzero(np.cumsum(covered)[:length]))
-    n_taps = len(cfg.tap_offsets)
+    n_taps = cfg.n_taps
     nbytes = (window * 8 + n_ch * table_len * 4 + 2 * n_ch * width * 4
               + cfg.n_steps * n_ch * 13 * 4)
     flops = float(ns.sum()) * (16 + 6 * n_taps) + valid.sum() * K2_UPDATE_FLOPS
     return float(nbytes), float(flops)
 
 
+# K2's timing shapes: GPS L1 C/A at 2 MSps (the main path's), and Galileo
+# E1-B + E1-C pilot at 4 MSps (the hybrid receiver's Galileo group)
+K2_TIMING = (("k2_c8", dict(n_channels=8)), ("k2_c128", dict(n_channels=128)),
+             ("k2_e1p_c6", dict(signal="1B", pilot=True, n_channels=6)),
+             ("k2_e1p_c128", dict(signal="1B", pilot=True, n_channels=128)))
+
+
 def phase_timing_k2(device, smi: str) -> dict:
-    """K2 per 100 ms chunk at C=8 and C=128: the raw launch in turns with
-    the eager loop on the plain correlator and on K1 (both host-bound: one
-    call each per turn)."""
+    """K2 per 100 ms chunk at each K2_TIMING shape: the raw launch in turns
+    with the eager loop on the plain correlator and (single-component
+    tables only: K1 does not route taps) on K1, both host-bound, one call
+    each per turn."""
     from gnss_sdr_tpu_torch.ops import correlator
     from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
     from gnss_sdr_tpu_torch.receiver import tracking as trk
 
     results = {}
-    for n_ch in (8, 128):
+    for name, kw in K2_TIMING:
         t0 = time.perf_counter()
-        cfg, chunk, state, tables, _ = k2_case(device, n_channels=n_ch)
+        cfg, chunk, state, tables, _ = k2_case(device, **kw)
+        n_ch = tables.shape[0]
         carry = tk.pack_carry(state)
         carry_out = torch.empty_like(carry)
         packed = torch.empty((cfg.n_steps, n_ch, tk.PACKED_COLS),
@@ -461,28 +558,33 @@ def phase_timing_k2(device, smi: str) -> dict:
         def wrapper():
             trk.track_chunk_packed(cfg, chunk, state, tables)
 
+        with_k1 = not cfg.track_pilot
         _time_ms(kernel, 3)                               # warm-up
-        for fn in (plain, eager_k1, wrapper):
+        for fn in (plain, wrapper) + ((eager_k1,) if with_k1 else ()):
             _time_ms(fn, 1)
         p1 = _time_ms(plain, 1)
         k_a = _time_ms(kernel, 20)
         k_b = _time_ms(kernel, 20)
         p2 = _time_ms(plain, 1)
-        e1 = _time_ms(eager_k1, 1)
-        e2 = _time_ms(eager_k1, 1)
+        e1 = _time_ms(eager_k1, 1) if with_k1 else float("nan")
+        e2 = _time_ms(eager_k1, 1) if with_k1 else float("nan")
         w = _time_ms(wrapper, 20)
         _, out = trk.track_chunk(cfg, chunk, state, tables,
                                  correlate=correlator.epoch_correlate_plain)
-        nbytes, flops = k2_work(cfg, out, n_ch, tables.shape[1],
+        nbytes, flops = k2_work(cfg, out, n_ch, tables[0].numel(),
                                 carry.shape[1])
         t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
         r = dict(ms=(k_a + k_b) / 2, plain_ms=(p1 + p2) / 2,
                  eager_k1_ms=(e1 + e2) / 2, wrapper_ms=w,
                  bound_ms=max(t_bytes, t_flops) * 1e3,
-                 bound_by="bytes" if t_bytes >= t_flops else "operations")
-        results[n_ch] = r
-        _line("timing", t0, shape=f"k2_c{n_ch}", steps=cfg.n_steps,
-              kernel_ms=f"{r['ms']:.4f}",
+                 bound_by="bytes" if t_bytes >= t_flops else "operations",
+                 steps=cfg.n_steps, n_max=cfg.n_max,
+                 smem=tk.shared_bytes(cfg.n_max, tables.shape[-1],
+                                      2 if cfg.track_pilot else 1))
+        results[name] = r
+        _line("timing", t0, shape=name, C=n_ch, steps=cfg.n_steps,
+              n_max=cfg.n_max, tile=tk.tile_len(cfg.n_max),
+              shared_bytes=r["smem"], kernel_ms=f"{r['ms']:.4f}",
               kernel_turns_ms=f"{k_a:.4f}/{k_b:.4f}",
               wrapper_ms=f"{w:.4f}",
               eager_plain_ms=f"{r['plain_ms']:.3f}",
@@ -629,16 +731,16 @@ def phase_stream(device, x: np.ndarray, prns: list, duration_s: float) -> None:
         raise SystemExit("streaming run: K2 launches != dispatches")
 
 
-def _final_carry_case(rx, x: np.ndarray) -> tuple:
-    """(cfg, chunk, carry, tables, None): the receiver's own dispatch on its
+def _final_carry_case(rx, x: np.ndarray, group: int = 0) -> tuple:
+    """(cfg, chunk, carry, tables, sec): a group's own dispatch on its
     final carry (as a TrackingState), over the stream's first chunk as the
     receiver uploads it."""
     from gnss_sdr_tpu_torch.receiver import tracking as trk
 
-    g = rx.groups[0]
+    g = rx.groups[group]
     cfg = g.trk_cfg
     return (cfg, rx._upload(x[: cfg.chunk_len + cfg.n_max]),
-            trk.as_state(g.trk_state), g._tables_dev, None)
+            trk.as_state(g.trk_state), g._tables_dev, g._sec_dev)
 
 
 def _enqueue_us(fn, n: int) -> float:
@@ -864,11 +966,223 @@ def phase_cli(device, main_run: dict, cond_s: float) -> int:
     return got["k2"]
 
 
+# ---------------------------------------------------------------- hybrid ---
+HYB_FS = 4.0e6
+HYB_T0 = 352800.13
+
+
+def hybrid_capture(duration_s: float) -> dict:
+    """tests/test_e2e_hybrid.py's scenario: 4 GPS L1 C/A satellites at 47
+    dB-Hz and 4 Galileo E1 satellites at 48 dB-Hz (vis_offset 3, 0 degree
+    mask) on one 4 MSps stream, clean signals from seeds 31 and 32 summed
+    with one unit-variance noise floor from seed 33. The Galileo signals
+    carry their E1-C pilot (with CS25), as real E1 signals do, so the
+    shipped conf's pilot tracking has a pilot to track."""
+    from gnss_sdr_tpu_torch.utils import generator, scenario
+
+    sc_g = scenario.build_gps_l1_scenario(t0_gps=HYB_T0, duration_s=duration_s,
+                                          fs=HYB_FS, n_sats=4, cn0_dbhz=47.0)
+    sc_e = scenario.build_galileo_e1_scenario(
+        t0_gps=HYB_T0, duration_s=duration_s, fs=HYB_FS, n_sats=4,
+        cn0_dbhz=48.0, vis_offset=3, el_mask_deg=0.0)
+    x = sc_g.generate(seed=31, noise=False)
+    x += generator.generate(sc_e.spec, sc_e.sats, HYB_FS, duration_s,
+                            seed=32, noise=False, with_pilot=True)
+    rng = np.random.default_rng(33)
+    n = len(x)
+    x += ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+          / np.sqrt(2.0)).astype(np.complex64)
+    return dict(sc_g=sc_g, sc_e=sc_e, x=x, duration_s=duration_s)
+
+
+def _fix_error(fixes, sc) -> tuple:
+    """(2D, 3D) error of the mean ENU offset of ``fixes`` from the truth."""
+    from gnss_sdr_tpu_torch.receiver.pvt import geodesy
+
+    lat, lon, _ = sc.rcv_llh
+    enu = np.stack([geodesy.ecef_to_enu(f.pos_ecef - sc.rcv_ecef, lat, lon)
+                    for f in fixes]).mean(axis=0)
+    return float(np.hypot(enu[0], enu[1])), float(np.linalg.norm(enu))
+
+
+def phase_hybrid(device, cap: dict, check: bool) -> dict:
+    """The in-process hybrid receiver (two signal groups, 6 + 6 channels)
+    on the hybrid capture, with tests/test_e2e_hybrid.py's loop settings:
+    each system tracks >= 3 of its satellites, >= 2 ephemerides per system
+    (>= 5 in all) equal to the truth, a mixed G + E fix with |ISB| < 1 us
+    and 2D < 2 m / 3D < 5 m over the last 5 mixed fixes, one K2 launch per
+    group dispatch and no K1 launch; with the host seconds of each receiver
+    stage."""
+    from gnss_sdr_tpu_torch.io.sources import ArraySignalSource
+    from gnss_sdr_tpu_torch.ops import correlator
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    sc_g, sc_e, x = cap["sc_g"], cap["sc_e"], cap["x"]
+    t0 = time.perf_counter()
+    cfg = ReceiverConfig(
+        fs=HYB_FS, chunk_ms=100,
+        signal_plan=(("1C", 6, tuple(sc_g.prns)), ("1B", 6, tuple(sc_e.prns))),
+        acq_doppler_max_hz=5000.0, acq_doppler_step_hz=125.0,
+        pll_bw_hz=20.0, dll_bw_hz=2.0, pll_bw_narrow_hz=8.0,
+        dll_bw_narrow_hz=0.75, pvt_apply_tropo=False, pvt_apply_iono=False)
+    rx = Receiver(cfg, device=device)
+    spent: dict = {}
+    _timed(rx, ("_upload", "_run_acquisition", "_dispatch_tracking",
+                "_finish_tracking", "_consume_tracking", "_run_observables"),
+           spent)
+    correlator.launches = 0
+    tk.launches = 0
+    rx.run_source(ArraySignalSource(x, HYB_FS))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    k1, k2 = correlator.launches, tk.launches
+    wall = time.perf_counter() - t0
+    dur = cap["duration_s"]
+    tracked = [sorted(ch.prn for ch in g.channels if ch.state == "tracking")
+               for g in rx.groups]
+    _line("hybrid", t0, step="receiver", wall_s=f"{wall:.3f}",
+          realtime_x=f"{dur / wall:.3f}", tracked_gps=tracked[0],
+          tracked_gal=tracked[1], scenario_gps=sorted(sc_g.prns),
+          scenario_gal=sorted(sc_e.prns), chunks=rx._chunk_index,
+          group_dispatches=rx.tracking_dispatches, scan_steps=rx.scan_steps,
+          k2_launches=k2, k1_launches=k1)
+    wait = spent["_finish_tracking"] - spent["_consume_tracking"]
+    _line("hybrid", t0, step="breakdown",
+          upload_s=f"{spent['_upload']:.3f}",
+          acquisition_s=f"{spent['_run_acquisition']:.3f}",
+          tracking_enqueue_s=f"{spent['_dispatch_tracking']:.3f}",
+          tracking_wait_s=f"{wait:.3f}",
+          telemetry_consume_s=f"{spent['_consume_tracking']:.3f}",
+          observables_pvt_s=f"{spent['_run_observables']:.3f}",
+          enqueue_us_per_dispatch=f"{spent['_dispatch_tracking'] / max(rx.tracking_dispatches, 1) * 1e6:.1f}")
+    bad = []
+    if len(set(tracked[0]) & set(sc_g.prns)) < 3:
+        bad.append(f"GPS tracked {tracked[0]}")
+    if len(set(tracked[1]) & set(sc_e.prns)) < 3:
+        bad.append(f"Galileo tracked {tracked[1]}")
+    if device.type == "cuda" and not (k2 == rx.tracking_dispatches > 0
+                                      and k1 == 0):
+        bad.append(f"K2 launches {k2} != group dispatches "
+                   f"{rx.tracking_dispatches}, or K1 launched {k1} times")
+    if check:
+        ephs = rx.ephemerides
+        truth = {"G": sc_g.ephemerides, "E": sc_e.ephemerides}
+        wrong = [key for key, e in ephs.items()
+                 if abs(e.sqrt_a - truth[key[0]][key[1]].sqrt_a) > 2.0 ** -19
+                 or e.toe != truth[key[0]][key[1]].toe]
+        per = {s: sum(1 for k in ephs if k[0] == s) for s in "GE"}
+        mixed = [f for f in rx.fixes if set(f.system_clock_s) == {"E", "G"}]
+        err = _fix_error(mixed[-5:], sc_g) if mixed else (np.inf, np.inf)
+        isb = (mixed[-1].system_clock_s["E"] - mixed[-1].system_clock_s["G"]
+               if mixed else np.inf)
+        _line("hybrid", t0, step="checks", ephemerides_gps=per["G"],
+              ephemerides_gal=per["E"], eph_mismatch=wrong,
+              fixes=len(rx.fixes), mixed_fixes=len(mixed),
+              isb_ns=f"{isb * 1e9:.3f}", err_2d_m=f"{err[0]:.3f}",
+              err_3d_m=f"{err[1]:.3f}")
+        if per["G"] < 2 or per["E"] < 2 or len(ephs) < 5 or wrong:
+            bad.append(f"ephemerides {per}, wrong {wrong}")
+        if not (abs(isb) < 1e-6 and err[0] < 2.0 and err[1] < 5.0):
+            bad.append(f"mixed fix ISB {isb} s, error {err}")
+    if bad:
+        raise SystemExit(f"hybrid phase failed its checks: {bad}")
+    return dict(rx=rx, k2_launches=k2, k1_launches=k1, wall_s=wall)
+
+
+def phase_cli_hybrid(device, cap: dict, hyb: dict, check: bool) -> int:
+    """The shipped conf/hybrid_gps_galileo.conf (6 + 6 channels, 4 MSps,
+    Tracking_1B.track_pilot=true, Tracking_1C.extend_correlation_symbols=20)
+    run by the CLI on the hybrid capture written as ishort: its capture path
+    and item type replaced, its output files moved into a temporary
+    directory, and PVT.trop_model / iono_model OFF (the simulation has no
+    atmosphere, as in the cli phase). Exit 0, a device line naming cuda,
+    both systems' satellites in the RINEX obs file, every G and E record of
+    the RINEX nav file equal to the hybrid phase's ephemeris of that
+    satellite (>= 2 per system), the last fix within 2D < 2 m / 3D < 5 m,
+    one K2 launch per group dispatch. Returns the CLI's K2 launches."""
+    from gnss_sdr_tpu_torch.receiver.pvt import geodesy
+    from gnss_sdr_tpu_torch.receiver.pvt.rinex import (RinexNavReader,
+                                                       RinexNavWriter,
+                                                       RinexObsReader)
+
+    platform = "cuda" if device.type == "cuda" else "cpu"
+    sc_g, sc_e, rx = cap["sc_g"], cap["sc_e"], hyb["rx"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        _write_ishort(tmp / "capture.ishort", cap["x"])
+        lines = []
+        for ln in (ROOT / "conf" / "hybrid_gps_galileo.conf").read_text(
+                ).splitlines():
+            if ln.startswith("SignalSource.filename="):
+                ln = f"SignalSource.filename={tmp / 'capture.ishort'}"
+            elif ln.startswith("SignalSource.item_type="):
+                ln = "SignalSource.item_type=ishort"
+            elif ln.startswith("PVT.") and "_filename=" in ln:
+                key, _, name = ln.partition("=")
+                ln = f"{key}={tmp / pathlib.Path(name).name}"
+            lines.append(ln)
+        lines += ["PVT.trop_model=OFF", "PVT.iono_model=OFF"]
+        conf = tmp / "hybrid.conf"
+        conf.write_text("\n".join(lines) + "\n")
+        t1 = time.perf_counter()
+        stdout, stderr = _run_cli(conf, platform)
+        cli_s = time.perf_counter() - t1
+        got = _summary(stdout)
+        obs = {}
+        for _, ep in RinexObsReader(tmp / "fix.obs").read_epochs():
+            for o in ep:
+                obs.setdefault(o["system"], set()).add(o["prn"])
+        nav = RinexNavReader(tmp / "fix.nav").read()
+        w = RinexNavWriter(tmp / "hybrid.nav")
+        for (sys_, _), e in rx.ephemerides.items():
+            w.write_ephemeris(e, system=sys_)
+        w.close()
+        ref = RinexNavReader(tmp / "hybrid.nav").read()
+        eph_equal = all(k in ref and dataclasses.asdict(nav[k])
+                        == dataclasses.asdict(ref[k]) for k in nav)
+        per = {s: sum(1 for k in nav if k[0] == s) for s in "GE"}
+        err = {}
+        if "fix_llh" in got:
+            lat, lon, h = got["fix_llh"]
+            pos = geodesy.geodetic_to_ecef(np.deg2rad(lat), np.deg2rad(lon), h)
+            enu = geodesy.ecef_to_enu(pos - sc_g.rcv_ecef, *sc_g.rcv_llh[:2])
+            err = dict(err_2d_m=float(np.hypot(enu[0], enu[1])),
+                       err_3d_m=float(np.linalg.norm(enu)))
+        gga = (tmp / "fix.nmea").read_text().count("$GPGGA")
+        _line("cli", t0, run="hybrid_conf", cli_seconds=f"{cli_s:.3f}",
+              tracked=got["tracked"], group_dispatches=got["dispatches"],
+              k2_launches=got["k2"], k1_launches=got["k1"],
+              obs_gps=sorted(obs.get("G", ())),
+              obs_gal=sorted(obs.get("E", ())), nav_gps=per["G"],
+              nav_gal=per["E"], nav_equal_hybrid=eph_equal, gga=gga,
+              device_line=f"device: {platform}" in stderr,
+              **{k: f"{v:.3f}" for k, v in err.items()})
+        want_g, want_e = set(sc_g.prns), set(sc_e.prns)
+        bad = [name for name, ok in (
+            ("device line", f"device: {platform}" in stderr),
+            ("K1 launches", got["k1"] == 0),
+            ("K2 launches", device.type != "cuda"
+             or got["k2"] == got["dispatches"] > 0),
+            ("RINEX obs G", not check or len(obs.get("G", set()) & want_g) >= 3),
+            ("RINEX obs E", not check or len(obs.get("E", set()) & want_e) >= 3),
+            ("RINEX nav", not check or (eph_equal and per["G"] >= 2
+                                        and per["E"] >= 2)),
+            ("GGA sentences", not check or gga > 0),
+            ("fix", not check or (err and err["err_2d_m"] < 2.0
+                                  and err["err_3d_m"] < 5.0)))
+            if not ok]
+        if bad:
+            raise SystemExit(f"hybrid CLI run failed its checks: {bad}")
+    return got["k2"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
-                    help="rehearse phases 3, 4, 6 and 8 on the CPU (plain "
-                         "versions)")
+                    help="rehearse phases 3, 4, 6, 8 and 9 on the CPU "
+                         "(plain versions)")
     args = ap.parse_args(argv)
 
     from gnss_sdr_tpu_torch.ops import correlator
@@ -878,6 +1192,11 @@ def main(argv=None) -> int:
         phase_k1(device, correlator)
         phase_k2(device, with_k16=False)
         phase_cli(device, phase_main(device, 3.0, check_fix=False), 0.5)
+        t0 = time.perf_counter()
+        cap = hybrid_capture(3.0)
+        _line("hybrid", t0, step="generate", samples=len(cap["x"]))
+        hyb = phase_hybrid(device, cap, check=False)
+        phase_cli_hybrid(device, cap, hyb, check=False)
         return 0
 
     t0 = time.perf_counter()
@@ -911,20 +1230,35 @@ def main(argv=None) -> int:
     k1_own = correlator.launches
     main_run = phase_main(device, 28.0, check_fix=True)
     rx, x = main_run["rx"], main_run["x"]
+    k2_main, k1_main = main_run["k2_launches"], main_run["k1_launches"]
     k2_err = _worst(k2_err, phase_k2_case("final_carry", device,
                                           *_final_carry_case(rx, x)))
     phase_stream(device, x, main_run["prns"], 12.0)
     phase_profile(rx, x)
     cli_k2 = phase_cli(device, main_run, 2.0)
+    del main_run, rx, x
 
-    a, k2c8 = timing["a_main_path"], timing_k2[8]
+    t0 = time.perf_counter()
+    cap = hybrid_capture(26.0)
+    _line("hybrid", t0, step="generate", samples=len(cap["x"]),
+          gps=sorted(cap["sc_g"].prns), gal=sorted(cap["sc_e"].prns))
+    hyb = phase_hybrid(device, cap, check=True)
+    for group, name in ((0, "hybrid_gps_final_carry"),
+                        (1, "hybrid_gal_final_carry")):
+        k2_err = _worst(k2_err, phase_k2_case(
+            name, device, *_final_carry_case(hyb["rx"], cap["x"], group)))
+    cli_hyb_k2 = phase_cli_hybrid(device, cap, hyb, check=True)
+
+    a, k2c8 = timing["a_main_path"], timing_k2["k2_c8"]
+    e1p = timing_k2["k2_e1p_c6"]
     record = {"kernels": [{
         "name": "epoch_multicorrelator",
         "route": "cuda",
         "source": "gnss_sdr_tpu_torch/csrc/correlator.cu",
         "replaces": "gnss_sdr_tpu/ops/correlator_pallas.py:70",
         "launches": k1_own,
-        "main_path_launches": main_run["k1_launches"],
+        "main_path_launches": k1_main,
+        "hybrid_launches": hyb["k1_launches"],
         "max_abs_err": k1_err,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
@@ -936,8 +1270,10 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "gnss_sdr_tpu_torch/csrc/tracking.cu",
         "replaces": "gnss_sdr_tpu/receiver/tracking.py:432",
-        "launches": main_run["k2_launches"],
+        "launches": hyb["k2_launches"],
+        "gps_main_launches": k2_main,
         "cli_launches": cli_k2,
+        "cli_hybrid_launches": cli_hyb_k2,
         "max_abs_err": k2_err["max_abs_err"],
         "float_tol_ratio": k2_err["float_tol_ratio"],
         "prompt_tol_ratio": k2_err["prompt_tol_ratio"],
@@ -945,6 +1281,10 @@ def main(argv=None) -> int:
         "plain_ms": k2c8["plain_ms"],
         "bound_ms": k2c8["bound_ms"],
         "bound_by": k2c8["bound_by"],
+        "e1_pilot_ms": e1p["ms"],
+        "e1_pilot_plain_ms": e1p["plain_ms"],
+        "e1_pilot_bound_ms": e1p["bound_ms"],
+        "e1_pilot_bound_by": e1p["bound_by"],
         "library_ms": None,
     }]}
     print(json.dumps(record))

@@ -221,13 +221,16 @@ def validate_conf(conf, plan: list) -> dict:
 
 
 # what the port has: every other name the tables accept raises in
-# check_ported (the GPS L1 C/A receiver, its file / array sources and the
-# rate conditioner; observables and PVT names all select the one engine)
+# check_ported (the GPS L1 C/A and Galileo E1-B receivers with PCPS
+# acquisition, their file / array sources and the rate conditioner;
+# observables and PVT names all select the one engine)
 PORTED_ACQUISITIONS = {n for n, (sig, ov) in ACQUISITIONS.items()
-                       if sig == "1C"}
+                       if sig == "1C" or (sig == "1B" and not ov)}
 PORTED_TRACKINGS = {"GPS_L1_CA_DLL_PLL_Tracking",
-                    "GPS_L1_CA_DLL_PLL_C_Aid_Tracking"}
-PORTED_TELEMETRIES = {"GPS_L1_CA_Telemetry_Decoder"}
+                    "GPS_L1_CA_DLL_PLL_C_Aid_Tracking",
+                    "Galileo_E1_DLL_PLL_VEML_Tracking"}
+PORTED_TELEMETRIES = {"GPS_L1_CA_Telemetry_Decoder",
+                      "Galileo_E1B_Telemetry_Decoder"}
 PORTED_SOURCES = {"File_Signal_Source"}
 PORTED_INPUT_FILTERS = {"Pass_Through", "Fir_Filter"}
 

@@ -18,6 +18,7 @@ import dataclasses
 # ---------------------------------------------------------------------------
 SPEED_OF_LIGHT_M_S = 299_792_458.0
 GM_EARTH = 3.986005e14          # WGS-84 gravitational constant [m^3/s^2] (GPS value)
+GM_EARTH_GAL = 3.986004418e14   # Galileo ICD value
 OMEGA_EARTH_DOT = 7.2921151467e-5      # Earth rotation rate [rad/s]
 F_REL = -4.442807633e-10        # relativistic clock constant [s/m^0.5]
 PI_GPS = 3.1415926535898        # pi as fixed by IS-GPS-200

@@ -12,6 +12,10 @@
 // Each thread strides over the window with 2K partial sums in registers,
 // adding its samples in order; a warp-shuffle tree then an in-order sum over
 // the warps finishes the block, so a result does not change from run to run.
+// The window may be passed whole (epoch_correlate_block, K1) or tile by tile
+// (epoch_accumulate per tile, then epoch_reduce: K2), with the same bits.
+// Each tap reads one component of a [G, Lt] table (pilot tracking: E1-C taps
+// and one E1-B data prompt).
 //
 // Rounding: the body computes the bits of the plain PyTorch version
 // (ops/correlator.py:epoch_correlate_plain), op for op, so the kernels can be
@@ -48,30 +52,40 @@ struct EpochReduce {
   float part[GNSS_THREADS / 32][2 * GNSS_MAX_TAPS];
 };
 
-// Correlate one epoch. Every thread of the block calls it. `x` points at
-// sample `off` of the chunk (global or shared memory); `code` is
-// the channel's table (shared memory); `taps` holds n_taps tap offsets
-// [chips]. Threads 0 .. 2*n_taps-1 write `out` after a block barrier; the
-// caller synchronises before reading it.
-__device__ __forceinline__ void epoch_correlate_block(
-    const float2* __restrict__ x, int n_lo, int n_hi, int ns,
-    const float* __restrict__ code, int table_len, float rem, float cps,
-    float frac, float step, const float* __restrict__ taps, int n_taps,
-    int table_rate, EpochReduce& red, float* __restrict__ out) {
+// One thread's running sums of an epoch: I and Q of each tap.
+struct EpochAcc {
+  float v[2 * GNSS_MAX_TAPS];
+};
+
+__device__ __forceinline__ void epoch_acc_zero(EpochAcc& a) {
+#pragma unroll
+  for (int k = 0; k < 2 * GNSS_MAX_TAPS; ++k) a.v[k] = 0.f;
+}
+
+// Add this thread's samples n of [n_from, n_to) to `a`: n = n_from +
+// threadIdx.x, then steps of GNSS_THREADS. x[n - x_base] is sample n of the
+// window, so a window can be passed tile by tile (x then points at a tile
+// whose first sample is n = x_base); when every tile starts at a multiple of
+// GNSS_THREADS, each thread meets its samples in the same order as over the
+// whole window and the sums are bit for bit those of one pass. `code` holds
+// the channel's tables, component g at code + g * table_len; tap k reads
+// component comp[k] (comp null: component 0 for every tap).
+__device__ __forceinline__ void epoch_accumulate(
+    EpochAcc& a, const float2* __restrict__ x, int x_base, int n_from,
+    int n_to, const float* __restrict__ code, int table_len, float rem,
+    float cps, float frac, float step, const float* __restrict__ taps,
+    const int* __restrict__ comp, int n_taps, int table_rate) {
   const float tr = (float)table_rate;
   const float two_pi = 6.28318548202514648f;      // float32(2 pi)
   float tap[GNSS_MAX_TAPS];
+  int base[GNSS_MAX_TAPS];
 #pragma unroll
-  for (int k = 0; k < GNSS_MAX_TAPS; ++k) tap[k] = k < n_taps ? taps[k] : 0.f;
-
-  float acc[2 * GNSS_MAX_TAPS];
-#pragma unroll
-  for (int k = 0; k < 2 * GNSS_MAX_TAPS; ++k) acc[k] = 0.f;
-
-  const int lo = max(n_lo, 0);
-  const int hi = min(ns, n_hi);
-  for (int n = lo + (int)threadIdx.x; n < hi; n += GNSS_THREADS) {
-    const float2 w = x[n];
+  for (int k = 0; k < GNSS_MAX_TAPS; ++k) {
+    tap[k] = k < n_taps ? taps[k] : 0.f;
+    base[k] = (k < n_taps && comp != nullptr) ? comp[k] * table_len : 0;
+  }
+  for (int n = n_from + (int)threadIdx.x; n < n_to; n += GNSS_THREADS) {
+    const float2 w = x[n - x_base];
     const float nf = (float)n;
     float ph = fma32(step, nf, frac);
     ph = __fsub_rn(ph, floorf(ph));               // mod 1 (floor semantics)
@@ -86,18 +100,26 @@ __device__ __forceinline__ void epoch_correlate_block(
       if (k < n_taps) {
         int idx = (int)floorf(__fmul_rn(__fadd_rn(chips, tap[k]), tr));
         idx = ((idx % table_len) + table_len) % table_len;   // floor-mod
-        const float cv = code[idx];
-        acc[2 * k] = __fadd_rn(acc[2 * k], __fmul_rn(cv, xr));
-        acc[2 * k + 1] = __fadd_rn(acc[2 * k + 1], __fmul_rn(cv, xi));
+        const float cv = code[base[k] + idx];
+        a.v[2 * k] = __fadd_rn(a.v[2 * k], __fmul_rn(cv, xr));
+        a.v[2 * k + 1] = __fadd_rn(a.v[2 * k + 1], __fmul_rn(cv, xi));
       }
     }
   }
+}
 
+// Sum the block's threads' `a` in the fixed order (a warp-shuffle tree,
+// then the warps in order). Every thread calls it; threads 0 ..
+// 2*n_taps-1 write `out` after a block barrier, and the caller synchronises
+// before reading it.
+__device__ __forceinline__ void epoch_reduce(const EpochAcc& a, int n_taps,
+                                             EpochReduce& red,
+                                             float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < 2 * GNSS_MAX_TAPS; ++k) {
-    float v = acc[k];
+    float v = a.v[k];
 #pragma unroll
     for (int d = 16; d > 0; d >>= 1)
       v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, d));
@@ -111,4 +133,20 @@ __device__ __forceinline__ void epoch_correlate_block(
       v = __fadd_rn(v, red.part[w][threadIdx.x]);
     out[threadIdx.x] = v;
   }
+}
+
+// Correlate one epoch in one pass. Every thread of the block calls it. `x`
+// points at sample `off` of the chunk (global or shared memory); `code` is
+// the channel's table (shared memory, one component); `taps` holds n_taps
+// tap offsets [chips]. Over n < ns with n_lo <= n < n_hi.
+__device__ __forceinline__ void epoch_correlate_block(
+    const float2* __restrict__ x, int n_lo, int n_hi, int ns,
+    const float* __restrict__ code, int table_len, float rem, float cps,
+    float frac, float step, const float* __restrict__ taps, int n_taps,
+    int table_rate, EpochReduce& red, float* __restrict__ out) {
+  EpochAcc a;
+  epoch_acc_zero(a);
+  epoch_accumulate(a, x, 0, max(n_lo, 0), min(ns, n_hi), code, table_len,
+                   rem, cps, frac, step, taps, nullptr, n_taps, table_rate);
+  epoch_reduce(a, n_taps, red, out);
 }

@@ -8,7 +8,10 @@
 // Design: one thread block per channel, a loop over the dispatch's n_steps
 // code epochs inside the block. Per step:
 //   1. the block correlates the epoch window against K code taps
-//      (epoch_correlate.cuh): every thread strides over the window;
+//      (epoch_correlate.cuh), streaming the window through shared memory in
+//      tiles: every thread strides over each tile and keeps its 2K partial
+//      sums in registers from tile to tile; the block reduction runs once
+//      per epoch;
 //   2. one thread (thread 0) runs the scalar loop update on the carry,
 //      which lives in shared memory: secondary-code wipe and coherent
 //      accumulation, EMLP / Costas / FLL discriminators, DLL2 / PLL3 loop
@@ -23,20 +26,26 @@
 // What bounds it on an H100: not bytes and not FLOPs. A 100 ms GPS L1 chunk
 // is 1.6 MB of samples read through the 50 MB L2 and ~0.2 MFLOP per channel
 // per step; the time is the chain of n_steps dependent steps, each a
-// window pass of ~2000 samples over GNSS_THREADS threads (a few serial
-// sincosf per thread), a block reduction, a scalar update of ~150 dependent
-// float ops on one thread, and four block barriers. What the design does
-// about it:
+// window pass of ~2000 (GPS L1, 2 MSps) to ~16,000 (Galileo E1, 4 MSps)
+// samples over GNSS_THREADS threads (a few serial sincosf per thread), a
+// block reduction, a scalar update of ~150 dependent float ops on one
+// thread, and a few block barriers. What the design does about it:
 //   - one launch per dispatch instead of ~231 eager operations per step;
-//   - the code table is staged in shared memory once per dispatch, not once
-//     per epoch (4 KB for L1 C/A, up to 40 KB for 10230-chip codes);
-//   - the next epoch's window (its offset offset + n_samp is known before
-//     this epoch's correlation starts) is prefetched with cp.async into a
-//     double-buffered shared-memory ring of 2 x n_max float2 (33 KB at GPS
-//     L1's n_max = 2064), so the load overlaps this epoch's correlation and
-//     loop update; ring and table must fit the block's 223 KB of dynamic
-//     shared memory (n_max up to ~11,400 samples beside a 40 KB table), and
-//     above 48 KB the launch raises the block's limit;
+//   - the code table (both components of a [2, Lt] table under pilot
+//     tracking: 64 KB for E1-B + E1-C) is staged in shared memory once per
+//     dispatch, not once per epoch;
+//   - the window is read through a ring of two tiles of `tile` samples
+//     (p.tile: n_max rounded up to a multiple of GNSS_THREADS, at most
+//     K2_TILE_MAX = 4096), filled with cp.async one tile ahead: the next
+//     tile of this epoch, or after the last one the first tile of the next
+//     epoch (its offset offset + n_samp is known before this epoch's
+//     correlation starts), so every load overlaps a tile's correlation and
+//     the loop update. Shared memory is 2 x tile float2 (at most 64 KB)
+//     plus the tables, whatever the window length: E1-B + E1-C at 4 MSps
+//     (n_max 16,064) takes 128 KB, GPS L1 at 2 MSps 44 KB. Tiles start at
+//     multiples of GNSS_THREADS from the window start, so each thread meets
+//     its samples in the order of one pass over the whole window and the
+//     sums keep the plain version's bits;
 //   - the scalar update runs on one thread, not on every thread, and
 //     channels run in parallel blocks, so the time per chunk hardly grows
 //     with the channel count until the blocks fill the 132 SMs.
@@ -92,18 +101,25 @@ enum CarryWord {
 #define WIDE_TRACK 2
 #define NARROW_TRACK 3
 #define MAX_DYN_SMEM (227 * 1024 - 4096)
+// the window ring's tile length bound [samples] (ops/tracking_kernel.py
+// TILE_MAX): two tiles of float2 take at most 64 KB
+#define K2_TILE_MAX 4096
 
 // Static configuration of one dispatch (tracking_kernel.py:_Params mirrors
-// it field for field: 4-byte ints, then 4-byte floats).
+// it field for field: 4-byte ints, then 4-byte floats, the taps' offsets
+// and the taps' table components). n_taps counts every tap, the data prompt
+// of pilot tracking included; table_len is one component's length and
+// n_comp the components (1, or 2 under pilot tracking: pilot, data).
 struct TrackParams {
   int n_ch, n_steps, n_max, chunk_len, length, table_len, table_rate, n_taps;
   int prompt_index, data_prompt_index, sec_stride, pull_in_epochs;
-  int wide_epochs, max_lock_fail, carry_width;
+  int wide_epochs, max_lock_fail, carry_width, n_comp, tile;
   float inv_fs, code_len, min_cps, emlp_scale, inv_two_pi, two_pi, fll_gain;
   float code_to_carrier, code_rate, pll_bw, pll_bw_narrow, dll_bw;
   float dll_bw_narrow, inv_pll_w0, inv_dll_w0, a3, b3, a2, cn0_alpha;
   float cn0_min, lock_min, eps20, eps12;
   float taps[GNSS_MAX_TAPS];
+  int tap_comp[GNSS_MAX_TAPS];
 };
 
 struct Carry {
@@ -392,15 +408,24 @@ __device__ void store_carry(const Carry& c, int* w, int n_taps) {
   for (int k = 0; k < 2 * n_taps; ++k) w[W_ACC_CORR + k] = w_of(c.acc[k]);
 }
 
-// Copy the window of `cnt` samples starting at sample `off` into `dst`,
-// asynchronously (8-byte cp.async per sample); the caller commits.
-__device__ __forceinline__ void prefetch_window(float2* dst,
-                                                const float2* chunk, int off,
-                                                int cnt) {
+// Copy samples [j * tile, j * tile + cnt) of the window that starts at
+// sample `off` of the chunk into `dst`, asynchronously (8-byte cp.async per
+// sample), with cnt bounded by the tile, the window bound n_max and the
+// chunk's end; the caller commits.
+__device__ __forceinline__ void prefetch_tile(float2* dst,
+                                              const float2* chunk,
+                                              const TrackParams& p, int off,
+                                              int j) {
+  const int first = j * p.tile;
+  const int cnt =
+      min(p.tile, min(p.n_max - first, p.length - off - first));
   for (int n = threadIdx.x; n < cnt; n += GNSS_THREADS)
-    __pipeline_memcpy_async(dst + n, chunk + off + n, sizeof(float2));
+    __pipeline_memcpy_async(dst + n, chunk + off + first + n, sizeof(float2));
 }
 
+// kPilot: the taps read a [2, Lt] table by component (pilot tracking);
+// without it every tap reads the one component, and the routing folds away
+template <bool kPilot>
 __global__ void __launch_bounds__(GNSS_THREADS)
 track_chunk_kernel(const TrackParams p, const float2* __restrict__ chunk,
                    const float* __restrict__ code_tables,
@@ -413,47 +438,68 @@ track_chunk_kernel(const TrackParams p, const float2* __restrict__ chunk,
   __shared__ EpochReduce red;
   __shared__ float corr[2 * GNSS_MAX_TAPS];
   __shared__ float taps[GNSS_MAX_TAPS];
+  __shared__ int comp[GNSS_MAX_TAPS];
 
   const int c = blockIdx.x;
   const int W = p.carry_width;
-  // dynamic shared memory: [ring of 2 x n_max float2][table]
+  const int T = p.tile;
+  // dynamic shared memory: [ring of 2 x tile float2][n_comp x table_len]
   float2* ring = reinterpret_cast<float2*>(smem);
-  float* code = reinterpret_cast<float*>(ring + 2 * (size_t)p.n_max);
+  float* code = reinterpret_cast<float*>(ring + 2 * (size_t)T);
 
-  // stage the code table once per dispatch; copy the carry row through
-  const float* table = code_tables + (size_t)c * p.table_len;
-  for (int i = threadIdx.x; i < p.table_len; i += GNSS_THREADS)
+  // stage the tables once per dispatch; copy the carry row through
+  const int table_words = p.n_comp * p.table_len;
+  const float* table = code_tables + (size_t)c * table_words;
+  for (int i = threadIdx.x; i < table_words; i += GNSS_THREADS)
     code[i] = table[i];
   for (int i = threadIdx.x; i < W; i += GNSS_THREADS)
     carry_out[(size_t)c * W + i] = carry_in[(size_t)c * W + i];
-  if (threadIdx.x < GNSS_MAX_TAPS) taps[threadIdx.x] = p.taps[threadIdx.x];
+  if (threadIdx.x < GNSS_MAX_TAPS) {
+    taps[threadIdx.x] = p.taps[threadIdx.x];
+    comp[threadIdx.x] = p.tap_comp[threadIdx.x];
+  }
   if (threadIdx.x == 0) {
     load_carry(carry, carry_in + (size_t)c * W, p.n_taps);
     plan_epoch(carry, p, plan);
   }
   __syncthreads();
-  prefetch_window(ring, chunk, plan.off, plan.cnt);
+  prefetch_tile(ring, chunk, p, plan.off, 0);
   __pipeline_commit();
   const float* sec_row =
       sec_tables != nullptr ? sec_tables + (size_t)c * p.sec_stride : nullptr;
 
+  int slot = 0;                           // ring slot of the tile in hand
   for (int s = 0; s < p.n_steps; ++s) {
-    const bool more = s + 1 < p.n_steps;
-    // the next window's offset is known now: fetch it during this epoch
-    if (more) {
-      const int nxt = plan.next_off;
-      prefetch_window(ring + (size_t)((s + 1) & 1) * p.n_max, chunk, nxt,
-                      min(p.n_max, p.length - nxt));
-      __pipeline_commit();
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
+    const int hi = min(plan.ns, plan.cnt);
+    const int n_tiles = max(1, (hi + T - 1) / T);
+    EpochAcc acc;
+    epoch_acc_zero(acc);
+    for (int j = 0; j < n_tiles; ++j) {
+      // fetch the tile after this one: the next of this epoch, else the
+      // first of the next epoch, whose offset is known now
+      float2* next = ring + (size_t)(slot ^ 1) * T;
+      bool issued = true;
+      if (j + 1 < n_tiles)
+        prefetch_tile(next, chunk, p, plan.off, j + 1);
+      else if (s + 1 < p.n_steps)
+        prefetch_tile(next, chunk, p, plan.next_off, 0);
+      else
+        issued = false;
+      if (issued) {
+        __pipeline_commit();
+        __pipeline_wait_prior(1);
+      } else {
+        __pipeline_wait_prior(0);
+      }
+      __syncthreads();                    // this tile is in place
+      epoch_accumulate(acc, ring + (size_t)slot * T, j * T, j * T,
+                       min((j + 1) * T, hi), code, p.table_len, plan.rem,
+                       plan.cps, plan.frac, plan.step, taps,
+                       kPilot ? comp : nullptr, p.n_taps, p.table_rate);
+      slot ^= 1;
+      if (j + 1 < n_tiles) __syncthreads();   // the slot read is refilled next
     }
-    __syncthreads();                      // this epoch's window is in place
-    epoch_correlate_block(ring + (size_t)(s & 1) * p.n_max, 0, plan.cnt,
-                          plan.ns, code, p.table_len, plan.rem, plan.cps,
-                          plan.frac, plan.step, taps, p.n_taps, p.table_rate,
-                          red, corr);
+    epoch_reduce(acc, p.n_taps, red, corr);
     __syncthreads();                      // corr is complete
     if (threadIdx.x == 0) {
       float* row = packed + ((size_t)s * p.n_ch + c) * PACKED_COLS;
@@ -476,24 +522,47 @@ track_chunk_kernel(const TrackParams p, const float2* __restrict__ chunk,
 // One launch: the whole dispatch for every channel. `params` points at a
 // host TrackParams; `sec_tables` may be null. Returns the CUDA error code
 // (0 on success; cudaErrorInvalidValue for what the kernel does not take,
-// which the wrapper refuses first).
+// which the wrapper refuses first). The block's dynamic shared-memory limit
+// is raised once per device to MAX_DYN_SMEM, so launches of any size (a
+// GPS group's and a Galileo group's, in any order on one stream) are
+// covered.
 extern "C" int gnss_track_chunk(const void* params, const void* chunk,
                                 const void* code_tables,
                                 const void* sec_tables, const void* carry_in,
                                 void* carry_out, void* packed, void* stream) {
+  typedef void (*Kernel)(const TrackParams, const float2*, const float*,
+                         const float*, const int*, int*, float*);
+  static bool raised[64] = {};
+  const Kernel variants[2] = {track_chunk_kernel<false>,
+                              track_chunk_kernel<true>};
   const TrackParams p = *(const TrackParams*)params;
+  const Kernel kernel = variants[p.n_comp == 2 ? 1 : 0];
   if (p.n_taps < 3 || p.n_taps > GNSS_MAX_TAPS) return (int)cudaErrorInvalidValue;
+  if (p.n_comp < 1 || p.n_comp > 2) return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < p.n_taps; ++k)
+    if (p.tap_comp[k] < 0 || p.tap_comp[k] >= p.n_comp)
+      return (int)cudaErrorInvalidValue;
+  if (p.tile < GNSS_THREADS || p.tile > K2_TILE_MAX ||
+      p.tile % GNSS_THREADS != 0)
+    return (int)cudaErrorInvalidValue;
   if (p.n_ch == 0) return (int)cudaSuccess;
-  const size_t smem =
-      2 * (size_t)p.n_max * sizeof(float2) + (size_t)p.table_len * 4;
+  const size_t smem = 2 * (size_t)p.tile * sizeof(float2) +
+                      (size_t)p.n_comp * p.table_len * 4;
   if (smem > MAX_DYN_SMEM) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        track_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    for (int v = 0; v < 2; ++v) {
+      err = cudaFuncSetAttribute(variants[v],
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 MAX_DYN_SMEM);
+      if (err != cudaSuccess) return (int)err;
+    }
+    raised[dev] = true;
   }
-  track_chunk_kernel<<<p.n_ch, GNSS_THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<p.n_ch, GNSS_THREADS, smem, (cudaStream_t)stream>>>(
       p, (const float2*)chunk, (const float*)code_tables,
       (const float*)sec_tables, (const int*)carry_in, (int*)carry_out,
       (float*)packed);

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 from gnss_sdr_tpu_torch import constants as C
 from gnss_sdr_tpu_torch.models.ephemeris import KeplerEphemeris
 
@@ -54,6 +56,83 @@ class GpsAlmanac:
             omega0=self.omega0, omega_dot=self.omega_dot, omega=self.omega,
             i0=GPS_ALMANAC_I0_REF + self.delta_i,
             health=self.health)
+
+    def position_velocity(self, t: float):
+        return self.to_ephemeris().position_velocity(t)
+
+
+# Galileo OS SIS ICD 5.1.10: the almanac broadcasts differences from the
+# nominal orbit — sqrt(A_nom) with A_nom = 29 600 000 m and i_nom = 56 deg
+GAL_ALMANAC_SQRT_A_REF = float(np.sqrt(29_600_000.0))
+GAL_ALMANAC_I0_REF = float(np.deg2rad(56.0))
+
+
+@dataclasses.dataclass
+class GalileoAlmanac:
+    """One satellite's I/NAV almanac (words 7-10, three SVIDs per IODa set).
+
+    Angles in radians; ``delta_sqrt_a`` and ``delta_i`` are offsets from
+    the ICD nominal orbit (reference ``Galileo_Almanac_Helper`` fields,
+    galileo_navigation_message.cc:565).
+    """
+
+    svid: int = 0
+    delta_sqrt_a: float = 0.0  # [m^0.5] offset from sqrt(29600 km)
+    e: float = 0.0
+    delta_i: float = 0.0       # [rad] offset from 56 deg
+    omega0: float = 0.0        # [rad]
+    omega_dot: float = 0.0     # [rad/s]
+    omega: float = 0.0         # [rad]
+    m0: float = 0.0            # [rad]
+    af0: float = 0.0           # [s]
+    af1: float = 0.0           # [s/s]
+    ioda: int = 0
+    wna: int = 0               # almanac week (2 LSBs of WN on air)
+    toa: float = 0.0           # [s of week], 600 s steps on air
+    e5b_hs: int = 0
+    e1b_hs: int = 0
+
+    @property
+    def prn(self) -> int:      # uniform key for the almanac stores
+        return self.svid
+
+    @property
+    def health(self) -> int:
+        return self.e1b_hs
+
+    def to_ephemeris(self) -> KeplerEphemeris:
+        return KeplerEphemeris(
+            prn=self.svid, week=self.wna, toc=self.toa, toe=self.toa,
+            af0=self.af0, af1=self.af1,
+            sqrt_a=GAL_ALMANAC_SQRT_A_REF + self.delta_sqrt_a,
+            e=self.e, m0=self.m0,
+            omega0=self.omega0, omega_dot=self.omega_dot, omega=self.omega,
+            i0=GAL_ALMANAC_I0_REF + self.delta_i,
+            health=self.e1b_hs, gm=C.GM_EARTH_GAL)
+
+    @classmethod
+    def from_ephemeris(cls, eph: KeplerEphemeris, ioda: int = 1
+                       ) -> "GalileoAlmanac":
+        """Almanac projection of an ephemeris (generator/test oracle);
+        toa snaps to the 600 s broadcast grid with the epoch-dependent
+        elements propagated to the snapped epoch (same reasoning as
+        GpsAlmanac.from_ephemeris)."""
+        toa = round(eph.toe / 600.0) * 600.0
+        dt = toa - eph.toe
+        n = np.sqrt(eph.gm) / eph.sqrt_a ** 3
+
+        def wrap(x):
+            return float((x + np.pi) % (2.0 * np.pi) - np.pi)
+
+        return cls(svid=eph.prn,
+                   delta_sqrt_a=eph.sqrt_a - GAL_ALMANAC_SQRT_A_REF,
+                   e=eph.e, delta_i=eph.i0 - GAL_ALMANAC_I0_REF,
+                   omega0=wrap(eph.omega0 + eph.omega_dot * dt),
+                   omega_dot=eph.omega_dot, omega=eph.omega,
+                   m0=wrap(eph.m0 + n * dt),
+                   af0=eph.af0 + eph.af1 * dt, af1=eph.af1,
+                   ioda=ioda, wna=eph.week & 0x3, toa=toa,
+                   e5b_hs=0, e1b_hs=0)
 
     def position_velocity(self, t: float):
         return self.to_ephemeris().position_velocity(t)

@@ -1,10 +1,13 @@
-"""PRN spreading-code generators for the ported signals (GPS L1 C/A and
-the SBAS L1 codes of the same Gold family).
+"""PRN spreading-code generators for the ported signals: GPS L1 C/A (and
+the SBAS L1 codes of the same Gold family) and Galileo E1-B / E1-C with the
+E1-C secondary code CS25.
 
 Host-side (numpy): codes are generated once per channel assignment and shipped
 to the device as float32 tables; the hot path never regenerates them. The
-other signals' generators (and their ICD seed tables) are ported with the
-slices that track those signals.
+Galileo E1 memory codes come from the port's own copy of their ICD hex dumps
+(``gnss_sdr_tpu_torch/data/icd_tables_e1.json``). The other signals'
+generators (and their ICD seed tables) are ported with the slices that track
+those signals.
 
 All generators return chips mapped to +/-1.0 float32 with the convention
 chip = 1 - 2*bit (bit 0 -> +1.0).
@@ -13,8 +16,18 @@ chip = 1 - 2*bit (bit 0 -> +1.0).
 from __future__ import annotations
 
 import functools
+import json
+import pathlib
 
 import numpy as np
+
+_DATA = (pathlib.Path(__file__).resolve().parent.parent / "data"
+         / "icd_tables_e1.json")
+
+
+@functools.lru_cache(maxsize=1)
+def _tables() -> dict:
+    return json.loads(_DATA.read_text())
 
 
 def _lfsr(n_stages: int, feedback_taps: tuple[int, ...], out_tap: int,
@@ -87,11 +100,40 @@ def gps_l1ca_code(prn: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# Galileo E1-B / E1-C  (OS SIS ICD Annex C memory codes, hex dumps)
+# ---------------------------------------------------------------------------
+
+
+def _hex_to_bits(h: str, n_bits: int) -> np.ndarray:
+    if len(h) % 2:
+        h = h + "0"  # ICD hex dumps can end on a nibble boundary
+    raw = np.frombuffer(bytes.fromhex(h), dtype=np.uint8)
+    bits = np.unpackbits(raw)[:n_bits]
+    return bits
+
+
+def galileo_e1b_code(prn: int) -> np.ndarray:
+    """4092-chip E1-B primary code, +/-1 float32, *without* BOC subcarrier."""
+    return _bits_to_chips(_hex_to_bits(_tables()["galileo_e1b_primary_hex"][prn - 1], 4092))
+
+
+def galileo_e1c_code(prn: int) -> np.ndarray:
+    return _bits_to_chips(_hex_to_bits(_tables()["galileo_e1c_primary_hex"][prn - 1], 4092))
+
+
+def galileo_e1c_secondary_code() -> np.ndarray:
+    """CS25_1 secondary code on the E1-C pilot (25 chips)."""
+    bits = np.array([int(b) for b in _tables()["galileo_e1c_secondary"]], dtype=np.uint8)
+    return _bits_to_chips(bits)
+
+
+# ---------------------------------------------------------------------------
 # Dispatch by signal code + sampling helpers
 # ---------------------------------------------------------------------------
 
 _GENERATORS = {
     "1C": lambda prn: gps_l1ca_code(prn),
+    "1B": lambda prn: galileo_e1b_code(prn),
 }
 
 
@@ -103,6 +145,29 @@ def code_chips(signal: str, prn: int) -> np.ndarray:
         raise NotImplementedError(
             f"code generator for signal {signal!r} is not ported yet") from None
     return gen(prn)
+
+
+# pilot components tracked by the reference's track_pilot option
+# (dll_pll_veml_tracking: E1 -> E1-C; E5a-Q and L5Q come with those signals)
+_PILOT_GENERATORS = {
+    "1B": lambda prn: galileo_e1c_code(prn),
+}
+
+
+def has_pilot(signal: str) -> bool:
+    return signal in _PILOT_GENERATORS
+
+
+def pilot_code_chips(signal: str, prn: int) -> np.ndarray:
+    """Pilot-component chip sequence (+/-1 float32) for a signal/PRN."""
+    return _PILOT_GENERATORS[signal](prn)
+
+
+def pilot_secondary_chips(signal: str, prn: int) -> np.ndarray | None:
+    """Pilot secondary code (one chip per primary period), None if absent."""
+    if signal == "1B":
+        return galileo_e1c_secondary_code()
+    return None
 
 
 def sample_code(chips: np.ndarray, fs: float, code_rate: float,

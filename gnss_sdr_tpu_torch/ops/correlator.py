@@ -81,9 +81,14 @@ def epoch_correlate_plain(chunk: torch.Tensor, offsets: torch.Tensor,
                           carr_phase_fracs: torch.Tensor,
                           carr_phase_steps: torch.Tensor,
                           tap_offsets: torch.Tensor, *, n_max: int,
-                          table_rate: int = 1) -> torch.Tensor:
+                          table_rate: int = 1,
+                          tap_components: tuple | None = None
+                          ) -> torch.Tensor:
     """Plain PyTorch multicorrelator; same arguments as
     :func:`batch_epoch_correlate` with ``chunk`` already float32 [L, 2].
+    With ``tap_components`` the tables are [C, G, Lt] and tap k reads
+    component ``tap_components[k]`` (the JAX gather path,
+    correlator.py:88-92).
 
     The float32 operations, and their order, are those of the JAX
     ``epoch_correlate`` (correlator.py:62-96) with its products-plus-sums
@@ -119,7 +124,11 @@ def epoch_correlate_plain(chunk: torch.Tensor, offsets: torch.Tensor,
     idx_f = (chips[:, None, :] + tap_offsets[None, :, None]) * float(table_rate)
     lt = code_tables.shape[-1]
     idx = torch.remainder(torch.floor(idx_f).to(torch.int32), lt)  # [C, K, N]
-    codes_kn = torch.gather(code_tables, 1,
+    flat = code_tables.reshape(code_tables.shape[0], -1)           # [C, G*Lt]
+    if tap_components is not None:
+        comp = torch.tensor(tap_components, dtype=torch.int32, device=dev)
+        idx = idx + (comp * lt)[None, :, None]
+    codes_kn = torch.gather(flat, 1,
                             idx.reshape(idx.shape[0], -1).long()
                             ).reshape(idx.shape)                   # [C, K, N]
     x2 = torch.stack([xr, xi], dim=1)                              # [C, 2, N]
@@ -150,7 +159,7 @@ def _block_sum(p: torch.Tensor) -> torch.Tensor:
 
 
 def _check(chunk, offsets, n_samples, code_tables, params, tap_offsets,
-           n_max: int, table_rate: int) -> None:
+           n_max: int, table_rate: int, tap_components=None) -> None:
     dev = chunk.device
     tensors = dict(offsets=offsets, n_samples=n_samples,
                    code_tables=code_tables, tap_offsets=tap_offsets, **params)
@@ -166,8 +175,10 @@ def _check(chunk, offsets, n_samples, code_tables, params, tap_offsets,
                          f"{tuple(chunk.shape)}")
     if not chunk.is_contiguous():
         raise ValueError("chunk must be contiguous")
-    if code_tables.dtype != torch.float32 or code_tables.ndim != 2:
-        raise ValueError(f"code_tables must be float32 [C, Lt], got "
+    ndim = 2 if tap_components is None else 3
+    if code_tables.dtype != torch.float32 or code_tables.ndim != ndim:
+        want = "[C, Lt]" if tap_components is None else "[C, G, Lt]"
+        raise ValueError(f"code_tables must be float32 {want}, got "
                          f"{code_tables.dtype} {tuple(code_tables.shape)}")
     n_ch = code_tables.shape[0]
     for name in ("offsets", "n_samples"):
@@ -186,6 +197,12 @@ def _check(chunk, offsets, n_samples, code_tables, params, tap_offsets,
                          f"{tap_offsets.shape[0]}")
     if n_max < 1 or table_rate < 1:
         raise ValueError("n_max and table_rate must be positive")
+    if tap_components is not None and (
+            len(tap_components) != tap_offsets.shape[0]
+            or not all(0 <= g < code_tables.shape[1] for g in tap_components)):
+        raise ValueError(f"tap_components {tap_components} must name one of "
+                         f"the {code_tables.shape[1]} table components per "
+                         f"tap")
 
 
 def batch_epoch_correlate(chunk, offsets, n_samples, code_tables,
@@ -203,28 +220,34 @@ def batch_epoch_correlate(chunk, offsets, n_samples, code_tables,
     (cycles), ``carr_phase_steps`` (cycles/sample) [C] float32;
     ``tap_offsets`` [K] float32 chips. Samples n >= n_samples[c] do not
     contribute (n_samples may be 0); ``n_max`` bounds n_samples.
+    ``tap_components`` (len K) routes tap k to component
+    ``tap_components[k]`` of [C, G, Lt] tables (pilot tracking).
 
     Returns [C, K, 2] float32. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (and count the launch), or raise.
+    tensors launch the kernel (and count the launch), or raise: the kernel
+    takes single-component tables only (the Pallas kernel never took
+    ``tap_components``; the fused tracking kernel K2 does).
     """
-    if tap_components is not None:
-        raise NotImplementedError(
-            "tap_components (pilot tracking) is not in the ported kernel's "
-            "contract yet")
     chunk = iq.as_iq2(chunk)
     params = dict(rem_code_phases=rem_code_phases,
                   code_phase_steps=code_phase_steps,
                   carr_phase_fracs=carr_phase_fracs,
                   carr_phase_steps=carr_phase_steps)
     _check(chunk, offsets, n_samples, code_tables, params, tap_offsets,
-           n_max, table_rate)
+           n_max, table_rate, tap_components)
     if chunk.device.type == "cpu":
         return epoch_correlate_plain(
             chunk, offsets, n_samples, code_tables, rem_code_phases,
             code_phase_steps, carr_phase_fracs, carr_phase_steps, tap_offsets,
-            n_max=n_max, table_rate=table_rate)
+            n_max=n_max, table_rate=table_rate,
+            tap_components=tap_components)
     if chunk.device.type != "cuda":
         raise ValueError(f"unsupported device {chunk.device}")
+    if tap_components is not None:
+        raise NotImplementedError(
+            "tap_components: the standalone multicorrelator kernel takes "
+            "single-component tables; pilot tracking runs in the fused "
+            "tracking kernel")
     return _launch(chunk, offsets, n_samples, code_tables, params,
                    tap_offsets, n_max, table_rate)
 

@@ -9,6 +9,13 @@ what its design does about that. Its plain version is the eager loop
 :func:`gnss_sdr_tpu_torch.receiver.tracking.track_chunk`, which
 ``track_chunk_packed`` runs for CPU tensors.
 
+The kernel takes single-component ``[C, Lt]`` code tables and, under pilot
+tracking, ``[C, 2, Lt]`` tables (pilot, data) with the data prompt as one
+more tap; it streams each epoch's window through a ring of two tiles
+(:func:`tile_len`), so its shared memory (:func:`shared_bytes`) is bounded
+whatever the window: GPS L1 C/A at 2 MSps and Galileo E1-B + E1-C at 4 MSps
+(n_max 16,064) both fit.
+
 The carry crosses into the kernel as one ``[C, W]`` int32 buffer
 (:func:`pack_carry`): every ``TrackingState`` field in the order of
 ``CARRY_FIELDS`` (the ``CarryWord`` enum of the kernel), floats bitcast,
@@ -39,8 +46,12 @@ launches = 0
 
 MAX_TAPS = 8
 # dynamic shared memory a block may take beside its static scratch
-# (csrc/tracking.cu MAX_DYN_SMEM): the window ring and the code table
+# (csrc/tracking.cu MAX_DYN_SMEM): the window ring and the code tables
 MAX_SMEM_BYTES = 227 * 1024 - 4096
+# the window ring's tile length bound [samples] (csrc/tracking.cu
+# K2_TILE_MAX); a tile is n_max rounded up to a multiple of the block's
+# threads, at most this
+TILE_MAX = 4096
 PACKED_COLS = 13
 
 # carry words in the kernel's order (csrc/tracking.cu enum CarryWord); the
@@ -152,14 +163,15 @@ class _Params(ctypes.Structure):
         "n_ch", "n_steps", "n_max", "chunk_len", "length", "table_len",
         "table_rate", "n_taps", "prompt_index", "data_prompt_index",
         "sec_stride", "pull_in_epochs", "wide_epochs", "max_lock_fail",
-        "carry_width")]
+        "carry_width", "n_comp", "tile")]
         + [(n, ctypes.c_float) for n in (
             "inv_fs", "code_len", "min_cps", "emlp_scale", "inv_two_pi",
             "two_pi", "fll_gain", "code_to_carrier", "code_rate", "pll_bw",
             "pll_bw_narrow", "dll_bw", "dll_bw_narrow", "inv_pll_w0",
             "inv_dll_w0", "a3", "b3", "a2", "cn0_alpha", "cn0_min",
             "lock_min", "eps20", "eps12")]
-        + [("taps", ctypes.c_float * MAX_TAPS)])
+        + [("taps", ctypes.c_float * MAX_TAPS),
+           ("tap_comp", ctypes.c_int * MAX_TAPS)])
 
 
 def _f32(x) -> float:
@@ -173,12 +185,32 @@ def _recip(x) -> float:
     return float(np.float32(1.0 / float(x)))
 
 
+def tile_len(n_max: int) -> int:
+    """The window ring's tile length for windows of up to ``n_max``
+    samples: n_max rounded up to a multiple of the block's threads, at most
+    TILE_MAX (so tiles start at multiples of the threads from the window
+    start, which keeps the plain version's summation order)."""
+    from gnss_sdr_tpu_torch.ops.correlator import BLOCK_THREADS
+
+    return min(TILE_MAX, -(-n_max // BLOCK_THREADS) * BLOCK_THREADS)
+
+
+def shared_bytes(n_max: int, table_len: int, n_comp: int) -> int:
+    """Dynamic shared memory of one block: the two-tile window ring and the
+    staged tables (csrc/tracking.cu gnss_track_chunk)."""
+    return 2 * tile_len(n_max) * 8 + n_comp * table_len * 4
+
+
 def make_params(cfg, n_ch: int, length: int, table_len: int,
                 sec_stride: int) -> _Params:
     """The kernel's static configuration for ``cfg`` (a TrackingConfig) at
     these shapes; each constant rounded as the eager loop rounds it on the
-    card."""
-    taps = cfg.tap_offsets
+    card. ``table_len``: one table component's length. Under pilot tracking
+    the taps are the main taps on the pilot (component 0) plus the data
+    prompt (offset 0, component 1)."""
+    main = cfg.tap_offsets
+    taps = tuple(main) + ((0.0,) if cfg.track_pilot else ())
+    comps = cfg.tap_components or (0,) * len(taps)
     pi = cfg.prompt_index
     two_pi = _f32(2.0 * np.pi)
     p = _Params(
@@ -188,9 +220,10 @@ def make_params(cfg, n_ch: int, length: int, table_len: int,
         data_prompt_index=cfg.data_prompt_index, sec_stride=sec_stride,
         pull_in_epochs=cfg.pull_in_epochs, wide_epochs=cfg.wide_epochs,
         max_lock_fail=cfg.max_lock_fail, carry_width=carry_width(len(taps)),
+        n_comp=2 if cfg.track_pilot else 1, tile=tile_len(cfg.n_max),
         inv_fs=_f32(1.0 / cfg.fs), code_len=_f32(cfg.code_length_chips),
         min_cps=_f32(1e-6),
-        emlp_scale=_f32(1.0 - float(taps[pi + 1] - taps[pi])),
+        emlp_scale=_f32(1.0 - float(main[pi + 1] - main[pi])),
         inv_two_pi=_recip(two_pi), two_pi=two_pi,
         fll_gain=_f32(4.0 * cfg.fll_bw_hz),
         code_to_carrier=_f32(cfg.code_to_carrier),
@@ -201,8 +234,9 @@ def make_params(cfg, n_ch: int, length: int, table_len: int,
         cn0_alpha=_f32(cfg.cn0_alpha), cn0_min=_f32(cfg.cn0_min_dbhz),
         lock_min=_f32(cfg.carrier_lock_min), eps20=_f32(1e-20),
         eps12=_f32(1e-12))
-    for k, t in enumerate(taps):
+    for k, (t, g) in enumerate(zip(taps, comps)):
         p.taps[k] = _f32(t)
+        p.tap_comp[k] = g
     return p
 
 
@@ -211,9 +245,6 @@ def _check(cfg, chunk, carry, code_tables, sec_tables) -> None:
     if cfg.carrier_kf:
         raise NotImplementedError("carrier_kf: the Kalman carrier loop is "
                                   "not ported yet")
-    if cfg.track_pilot:
-        raise NotImplementedError("track_pilot: pilot tracking is not "
-                                  "ported yet")
     tensors = dict(chunk=chunk, carry=carry, code_tables=code_tables)
     if sec_tables is not None:
         tensors["sec_tables"] = sec_tables
@@ -225,8 +256,8 @@ def _check(cfg, chunk, carry, code_tables, sec_tables) -> None:
             raise ValueError(f"{name} is on {t.device}, chunk on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    n_taps = len(cfg.tap_offsets)
-    if not 3 <= n_taps <= MAX_TAPS:
+    n_taps = cfg.n_taps
+    if not 3 <= len(cfg.tap_offsets) <= n_taps <= MAX_TAPS:
         raise ValueError(f"3..{MAX_TAPS} taps supported, got {n_taps}")
     if chunk.dtype != torch.float32 or chunk.ndim != 2 or chunk.shape[1] != 2:
         raise ValueError(f"chunk must be float32 [L, 2], got {chunk.dtype} "
@@ -234,15 +265,20 @@ def _check(cfg, chunk, carry, code_tables, sec_tables) -> None:
     if chunk.shape[0] < cfg.chunk_len + cfg.n_max:
         raise ValueError(f"chunk of {chunk.shape[0]} samples is shorter than "
                          f"chunk_len + n_max = {cfg.chunk_len + cfg.n_max}")
-    if code_tables.dtype != torch.float32 or code_tables.ndim != 2:
-        raise ValueError(f"code_tables must be float32 [C, Lt], got "
+    n_comp = 2 if cfg.track_pilot else 1
+    want = "[C, 2, Lt]" if cfg.track_pilot else "[C, Lt]"
+    if (code_tables.dtype != torch.float32
+            or code_tables.ndim != (3 if cfg.track_pilot else 2)
+            or (cfg.track_pilot and code_tables.shape[1] != 2)):
+        raise ValueError(f"code_tables must be float32 {want}, got "
                          f"{code_tables.dtype} {tuple(code_tables.shape)}")
-    n_ch, lt = code_tables.shape
-    smem = 2 * cfg.n_max * 8 + lt * 4
+    n_ch, lt = code_tables.shape[0], code_tables.shape[-1]
+    smem = shared_bytes(cfg.n_max, lt, n_comp)
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"a window ring of 2 x {cfg.n_max} samples and a code "
-                         f"table of {lt} entries ({smem} B) exceed the "
-                         f"kernel's {MAX_SMEM_BYTES} B of shared memory")
+        raise ValueError(f"a window ring of 2 x {tile_len(cfg.n_max)} "
+                         f"samples and {n_comp} code table(s) of {lt} entries "
+                         f"({smem} B) exceed the kernel's {MAX_SMEM_BYTES} B "
+                         f"of shared memory")
     width = carry_width(n_taps)
     if carry.dtype != torch.int32 or tuple(carry.shape) != (n_ch, width):
         raise ValueError(f"carry must be int32 [{n_ch}, {width}], got "
@@ -275,7 +311,7 @@ def kernel_args(cfg, chunk, carry, code_tables, sec_tables, carry_out,
     """The C entry's arguments for checked tensors, writing ``carry_out``
     [C, W] int32 and ``packed`` [S, C, 13] float32 on the current stream.
     The parameter block is kept alive in the tuple."""
-    n_ch, lt = code_tables.shape
+    n_ch, lt = code_tables.shape[0], code_tables.shape[-1]
     params = cached_params(cfg, n_ch, chunk.shape[0], lt,
                            0 if sec_tables is None else sec_tables.shape[1])
     return (params, ctypes.addressof(params), chunk.data_ptr(),

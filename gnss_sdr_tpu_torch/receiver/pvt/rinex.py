@@ -3,9 +3,9 @@
 Port of gnss_sdr_tpu/receiver/pvt/rinex.py (reference analog:
 ``Rinex_Printer``, ``src/algorithms/PVT/libs/rinex_printer.cc``): the same
 text, byte for byte, for what this port's receiver produces — observables
-(C/L/D/S) of any signal, GPS LNAV ephemerides. The navigation records of
-other systems (Galileo, BeiDou, GLONASS, SBAS) raise ``NotImplementedError``
-until their signals are ported.
+(C/L/D/S) of any signal, GPS LNAV and Galileo I/NAV ephemerides. The
+navigation records of other systems (BeiDou, GLONASS, SBAS) raise
+``NotImplementedError`` until their signals are ported.
 """
 
 from __future__ import annotations
@@ -210,11 +210,11 @@ class RinexObsReader:
 
 
 class RinexNavWriter:
-    """RINEX 3.02 mixed (or 2.11 GPS) navigation writer for GPS LNAV
-    records.
+    """RINEX 3.02 mixed (or 2.11 GPS) navigation writer for GPS LNAV and
+    Galileo I/NAV records.
 
     Reference analog: the nav side of ``rinex_printer.cc`` (log_rinex_nav
-    for Gps_Ephemeris); other systems' records raise.
+    for Gps_Ephemeris / Galileo_Ephemeris); other systems' records raise.
     """
 
     def __init__(self, path, version: str = "3.02",
@@ -296,11 +296,17 @@ class RinexNavWriter:
         self._f.write(pad + "".join(_f1912(v) for v in vals) + "\n")
 
     def write_ephemeris(self, eph, system: str = "G") -> None:
-        """Append one GPS LNAV broadcast record (a KeplerEphemeris)."""
-        if system != "G" or hasattr(eph, "tb_s") or hasattr(eph, "agf0_s"):
+        """Append one GPS LNAV or Galileo I/NAV broadcast record (a
+        KeplerEphemeris)."""
+        if system not in ("G", "E") or hasattr(eph, "tb_s") \
+                or hasattr(eph, "agf0_s"):
             raise NotImplementedError(
                 f"RINEX navigation records of system {system!r} "
                 f"({type(eph).__name__}) are not ported yet")
+        if self.version.startswith("2") and system != "G":
+            raise ValueError(
+                f"RINEX 2.11 nav files are GPS-only; system {system!r} "
+                "needs version 3.02")
         key = (system, eph.prn, eph.iode, eph.toe)
         if key in self._written:
             return
@@ -313,10 +319,16 @@ class RinexNavWriter:
         self._line(eph.cuc, eph.e, eph.cus, eph.sqrt_a)
         self._line(eph.toe, eph.cic, eph.omega0, eph.cis)
         self._line(eph.i0, eph.crc, eph.omega, eph.omega_dot)
-        self._line(eph.idot, 1.0, float(eph.week), 0.0)
-        self._line(float(eph.ura), float(eph.health), eph.tgd,
-                   float(eph.iodc))
-        self._line(eph.toe, 4.0)
+        if system == "G":
+            self._line(eph.idot, 1.0, float(eph.week), 0.0)
+            self._line(float(eph.ura), float(eph.health), eph.tgd,
+                       float(eph.iodc))
+            self._line(eph.toe, 4.0)
+        else:
+            # data sources 0x0201 = I/NAV E1-B; BGD E5a/E1 in the tgd slot
+            self._line(eph.idot, 513.0, float(eph.week), 0.0)
+            self._line(float(eph.ura), float(eph.health), eph.tgd, 0.0)
+            self._line(eph.toe, 0.0)
         self._f.flush()
 
     def close(self) -> None:
@@ -324,7 +336,8 @@ class RinexNavWriter:
 
 
 class RinexNavReader:
-    """RINEX 3.x mixed / 2.11 navigation reader for GPS LNAV records.
+    """RINEX 3.x mixed / 2.11 navigation reader for GPS LNAV and Galileo
+    I/NAV records.
 
     Reference analog: RTKLIB's ``readrnx`` nav branch (rtklib_rinex).
     Returns a dict keyed (system, prn) -> ephemeris (latest record wins);
@@ -344,6 +357,7 @@ class RinexNavReader:
         return out
 
     def read(self) -> dict:
+        from gnss_sdr_tpu_torch import constants as C
         from gnss_sdr_tpu_torch.models.ephemeris import KeplerEphemeris
         from gnss_sdr_tpu_torch.receiver.pvt.gpstime import gpsdatetime_to_gps
 
@@ -403,7 +417,7 @@ class RinexNavReader:
                                   int(ln[21:23]))
             a = [float(ln[23 + 19 * k: 23 + 19 * (k + 1)].replace("D", "E"))
                  for k in range(3)]
-            if system != "G":
+            if system not in ("G", "E"):
                 raise NotImplementedError(
                     f"RINEX navigation records of system {system!r} are not "
                     f"ported yet")
@@ -426,6 +440,8 @@ class RinexNavReader:
                 idot=rows[4][0],
                 ura=int(rows[5][0]), health=int(rows[5][1]), tgd=rows[5][2],
                 iodc=int(rows[5][3]))
+            if system == "E":
+                eph.gm = C.GM_EARTH_GAL
             out[(system, prn)] = eph
             i += 8
         return out

@@ -9,11 +9,14 @@ advances chunk by chunk; per chunk it runs
 The channel manager mirrors the reference's state machine (idle -> tracking,
 reacquire on loss; gnss_flowgraph.cc:1203-1366).
 
-This port covers the single-signal-group GPS L1 C/A receiver with its
-control plane (telecommands, assistance, output sinks) and the rate
-conditioner of ``run_file_source``. Every ``ReceiverConfig`` field of the
-JAX package exists here; a field that selects a feature not yet ported
-raises ``NotImplementedError`` naming the field.
+This port covers the GPS L1 C/A and Galileo E1-B receivers, alone or as
+signal groups of one hybrid receiver (``signal_plan``, ``group_params``:
+each group runs its own tracking loop on the shared stream, BOC(1,1) VEML
+tracking and E1-C pilot tracking for Galileo), with the control plane
+(telecommands, assistance, output sinks) and the rate conditioner of
+``run_file_source``. Every ``ReceiverConfig`` field of the JAX package
+exists here; a field that selects a feature not yet ported raises
+``NotImplementedError`` naming the field.
 
 Device boundary: one upload per dispatch (int8 / packed-nibble / float32, as
 ``upload_bits`` says, dequantized on the device), one download of the packed
@@ -108,20 +111,19 @@ class ReceiverConfig:
     n_mesh_devices: int | None = None
 
 
+# the signals whose codes, tracking and telemetry are ported
+PORTED_SIGNALS = ("1C", "1B")
+
+
 def _check_ported(cfg: ReceiverConfig) -> None:
     """Raise for every field that selects a feature this port lacks."""
-    plan = [tuple(e) for e in cfg.signal_plan]
     unported = {
-        "signal": cfg.signal != "1C",
-        # one group, the primary signal's (what receiver_config_from_ini
-        # writes for a single-signal conf)
-        "signal_plan": bool(plan) and (
-            len(plan) > 1 or plan[0][:2] != (cfg.signal, cfg.n_channels)
-            or (len(plan[0]) > 2 and bool(plan[0][2]))),
+        "signal": cfg.signal not in PORTED_SIGNALS,
+        "signal_plan": any(e[0] not in PORTED_SIGNALS
+                           for e in cfg.signal_plan),
         "n_mesh_devices": bool(cfg.n_mesh_devices and cfg.n_mesh_devices > 1),
         "tcp_connector": cfg.tcp_connector,
         "carrier_kf": cfg.carrier_kf,
-        "track_pilot": cfg.track_pilot,
         "acq_variant": cfg.acq_variant != "pcps",
         "dump_dir": cfg.dump_dir is not None,
     }
@@ -234,20 +236,27 @@ class SignalGroup:
                 "pseudorange biases; prefer an incommensurate rate "
                 "(e.g. the reference confs use 2.0 MHz for L1 C/A)",
                 cfg.fs, signal, spc)
+        track_pilot = cfg.track_pilot and codes.has_pilot(signal)
         self.trk_cfg = trk.default_config(
             self.spec, cfg.fs, cfg.chunk_ms,
             if_freq_hz=cfg.if_freq_hz,
             pll_bw_hz=cfg.pll_bw_hz, dll_bw_hz=cfg.dll_bw_hz,
             fll_bw_hz=cfg.fll_bw_hz,
             pll_bw_narrow_hz=cfg.pll_bw_narrow_hz,
-            dll_bw_narrow_hz=cfg.dll_bw_narrow_hz)
+            dll_bw_narrow_hz=cfg.dll_bw_narrow_hz,
+            track_pilot=track_pilot)
         self.channels = [Channel(i, global_id0 + i) for i in range(n_channels)]
         self.trk_state = trk.init_state(n_channels, self.trk_cfg.n_taps,
                                         device=device)
         if device.type == "cuda":
             self.trk_state = tracking_kernel.pack_carry(self.trk_state)
         table_len = self.spec.code_length_chips * self.trk_cfg.table_rate
-        self.code_tables = np.zeros((n_channels, table_len), np.float32)
+        shape = ((n_channels, 2, table_len) if track_pilot
+                 else (n_channels, table_len))
+        self.code_tables = np.zeros(shape, np.float32)
+        self.sec_tables = np.ones(
+            (n_channels, self.trk_cfg.sec_table_len), np.float32)
+        self._sec_dev = None
         self.tables_rev = 0
         self._tables_rev = -1
         self._tables_dev = None
@@ -298,18 +307,26 @@ class Receiver:
         _check_ported(config)
         self.cfg = config
         self.device = resolve_device(device)
-        prns = config.prns or tuple(
-            range(1, constants.SIGNALS[config.signal].prn_max + 1))
+        plan = list(config.signal_plan) or [
+            (config.signal, config.n_channels, config.prns)]
+        self.groups: list[SignalGroup] = []
+        gid = 0
         gparams = {sig: dict(items) for sig, items in config.group_params}
-        gcfg = (dataclasses.replace(config, **gparams[config.signal])
-                if config.signal in gparams else config)
-        _check_ported(gcfg)
-        self.groups: list[SignalGroup] = [
-            SignalGroup(gcfg, config.signal, config.n_channels, prns, 0,
-                        self.device)]
+        for entry in plan:
+            sig, n_ch = entry[0], entry[1]
+            prns = entry[2] if len(entry) > 2 and entry[2] else tuple(
+                range(1, constants.SIGNALS[sig].prn_max + 1))
+            gcfg = (dataclasses.replace(config, **gparams[sig])
+                    if sig in gparams else config)
+            _check_ported(gcfg)
+            self.groups.append(SignalGroup(gcfg, sig, n_ch, prns, gid,
+                                           self.device))
+            gid += n_ch
+        # every group reads its slab of one shared upload: the chunk plus
+        # the largest group's halo
         g0 = self.groups[0]
         self.chunk_len = g0.trk_cfg.chunk_len
-        self.n_max = g0.n_max
+        self.n_max = max(g.n_max for g in self.groups)
 
         self.observables = ObservablesEngine(
             config.fs, config.obs_interval_ms,
@@ -579,7 +596,20 @@ class Receiver:
                         delay: int, doppler: float) -> None:
         fc = g.carrier_freq_for(prn)
         code_freq = g.spec.code_rate_cps * (1.0 + doppler / fc)
-        g.code_tables[ch.ch_id] = codes.code_chips(g.signal, prn)
+
+        def table(chips):
+            if g.trk_cfg.table_rate == 2:
+                # BOC(1,1): 2 entries per chip, the subcarrier applied
+                return np.repeat(chips, 2) * np.tile(
+                    [1.0, -1.0], g.spec.code_length_chips).astype(np.float32)
+            return chips
+        data_table = table(codes.code_chips(g.signal, prn))
+        if g.trk_cfg.track_pilot:
+            g.code_tables[ch.ch_id, 0] = table(
+                codes.pilot_code_chips(g.signal, prn))
+            g.code_tables[ch.ch_id, 1] = data_table
+        else:
+            g.code_tables[ch.ch_id] = data_table
         g.tables_rev += 1
         g.trk_state = trk.start_channel(
             g.trk_state, ch.ch_id, code_freq=code_freq,
@@ -608,11 +638,15 @@ class Receiver:
 
     # ------------------------------------------------------------ tracking
     def _refresh_tables_dev(self, g: SignalGroup) -> None:
-        """Keep the (rarely changing) code tables on the device, re-uploaded
-        once per table revision (channel (re)assignment). GPS L1 C/A has no
-        secondary code, so the loop runs without secondary-code tables."""
+        """Keep the (rarely changing) code and secondary-code tables on the
+        device, re-uploaded once per table revision (channel (re)assignment,
+        secondary-code anchoring). A group whose signal has no secondary
+        code runs the loop without secondary-code tables: its wipe chip
+        would be 1.0 on every epoch, a product that changes no bit."""
         if g._tables_rev != g.tables_rev:
             g._tables_dev = torch.from_numpy(g.code_tables).to(self.device)
+            g._sec_dev = (torch.from_numpy(g.sec_tables).to(self.device)
+                          if g.spec.secondary_code else None)
             g._tables_rev = g.tables_rev
 
     def _dispatch_tracking(self, g: SignalGroup, chunk_dev: torch.Tensor,
@@ -625,7 +659,7 @@ class Receiver:
         slab = k * self.chunk_len + g.n_max
         self._refresh_tables_dev(g)
         g.trk_state, packed = trk.track_chunk_packed(
-            cfg_k, chunk_dev, g.trk_state, g._tables_dev,
+            cfg_k, chunk_dev, g.trk_state, g._tables_dev, g._sec_dev,
             slab=None if chunk_dev.shape[0] == slab else slab)
         self.scan_steps += cfg_k.n_steps
         self.tracking_dispatches += 1
@@ -665,17 +699,23 @@ class Receiver:
                     base + start[v, i].astype(np.int64), eidx[v, i],
                     rem[v, i], codef[v, i], carrf[v, i], cyc[v, i],
                     frac[v, i], cn0[v, i])
-            # after bit sync: extended coherent integration, anchored at the
-            # telemetry's bit boundary (dll_pll_veml_tracking.cc state 3)
+            # after bit sync: extended coherent integration (+ the
+            # secondary-code wipe for NH/CS-overlaid signals), anchored at
+            # the telemetry's bit boundary (dll_pll_veml_tracking.cc state 3)
             if (g.extend_symbols > 1 and not ch.ext_configured
-                    and ch.telemetry.bit_phase is not None):
+                    and getattr(ch.telemetry, "bit_phase", None) is not None):
                 anchor = int(ch.telemetry.bit_phase)
+                if g.spec.secondary_code:
+                    chips = np.array([int(b) for b in g.spec.secondary_code])
+                    g.trk_state = trk.set_secondary(
+                        g.trk_state, g.sec_tables, i, chips, anchor)
+                    g.tables_rev += 1
                 g.trk_state = trk.set_extension(
                     g.trk_state, i, g.extend_symbols, anchor)
                 ch.ext_configured = True
                 log.info("ch %d [%s]: extended integration %d epochs",
                          ch.global_id, g.signal, g.extend_symbols)
-            if lol[i]:
+            if lol[i] or getattr(ch.telemetry, "sync_failed", False):
                 self._drop_channel(g, ch)
 
     # --------------------------------------------------------- observables
@@ -737,12 +777,14 @@ class Receiver:
                     if eph is not None:
                         self.ephemerides[(g.spec.system, ch.prn)] = eph
                     asm = ch.telemetry.assembler
-                    if asm.iono is not None and asm.iono.valid:
-                        self.iono = asm.iono
-                    if asm.utc is not None and asm.utc.valid:
-                        self.utc = asm.utc
+                    iono = getattr(asm, "iono", None)
+                    if iono is not None and iono.valid:
+                        self.iono = iono
+                    utc = getattr(asm, "utc", None)
+                    if utc is not None and utc.valid:
+                        self.utc = utc
                     # almanac pages name OTHER satellites: key by their PRN
-                    for prn, alm in asm.almanacs.items():
+                    for prn, alm in getattr(asm, "almanacs", {}).items():
                         self.almanacs[(g.spec.system, prn)] = alm
 
     def pvt_inputs(self, obs: list[ChannelObservable]) -> list:
@@ -841,6 +883,8 @@ class Receiver:
         chunk_dev = self._upload(chunk)
         for g in self.groups:
             self._run_acquisition(g, chunk, chunk_dev)
+        # every group's loop is enqueued before the first wait (on the card
+        # one K2 launch per tracking group, each on its slab of the upload)
         pends = [(g, self._dispatch_tracking(g, chunk_dev, k))
                  for g in self.groups]
         if defer:

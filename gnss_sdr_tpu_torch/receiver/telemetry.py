@@ -176,10 +176,92 @@ class GpsL1CaTelemetry:
         return self.assembler.ephemeris()
 
 
+class GalileoE1BTelemetry:
+    """Galileo E1-B I/NAV telemetry decoder for one channel.
+
+    One tracking epoch (4 ms primary code) = one 250 sps symbol, so there is
+    no bit-sync stage; page sync = the 10-symbol preamble + CRC validation
+    (reference: galileo_telemetry_decoder_gs.cc:210-247 — deinterleave,
+    Viterbi with inverted G2, CRC check).
+    """
+
+    PAGE_SYMBOLS = 500
+
+    def __init__(self, prn: int):
+        from gnss_sdr_tpu_torch.models.nav import galileo_inav
+        self._gi = galileo_inav
+        self.prn = prn
+        self._epochs = np.zeros(0, np.int64)
+        self._soft = np.zeros(0, np.float64)   # soft symbols, + == bit 1
+        self.assembler = galileo_inav.InavAssembler(prn)
+        self.page_phase: int | None = None     # epoch index mod 500 of page start
+        self.polarity = 1.0
+        self._decoded_upto = 0
+        self.page_count = 0
+        self.tow_ref: TowReference | None = None
+
+    def push(self, epoch_indices: np.ndarray, prompts_i: np.ndarray) -> None:
+        if len(epoch_indices) == 0:
+            return
+        self._epochs = np.concatenate([self._epochs, np.asarray(epoch_indices, np.int64)])
+        # chip convention: bit b -> amplitude (1-2b); soft(+ == bit1) = -I
+        self._soft = np.concatenate([self._soft, -np.asarray(prompts_i, np.float64)])
+        self._decode()
+
+    def _try_page_at(self, i: int):
+        seg = self._soft[i: i + self.PAGE_SYMBOLS]
+        if len(seg) < self.PAGE_SYMBOLS:
+            return None
+        return self._gi.decode_page(seg)
+
+    def _decode(self) -> None:
+        e0 = int(self._epochs[0])
+        if self.page_phase is None:
+            n = len(self._soft)
+            for i in range(0, n - self.PAGE_SYMBOLS):
+                res = self._try_page_at(i)
+                if res is None:
+                    continue
+                self.page_phase = (e0 + i) % self.PAGE_SYMBOLS
+                self._decoded_upto = i
+                break
+            if self.page_phase is None:
+                return
+        while self._decoded_upto + self.PAGE_SYMBOLS <= len(self._soft):
+            i = self._decoded_upto
+            res = self._try_page_at(i)
+            if res is not None:
+                wt, fields = res
+                first_epoch = e0 + i
+                self.assembler.push(self._gi.InavPage(wt, fields, first_epoch))
+                self.page_count += 1
+                if wt == 5 and "tow" in fields:
+                    self.tow_ref = TowReference(tow_s=fields["tow"],
+                                                epoch=first_epoch, polarity=1)
+            self._decoded_upto = i + self.PAGE_SYMBOLS
+
+    @property
+    def have_tow(self) -> bool:
+        return self.tow_ref is not None
+
+    def transmit_time(self, epoch: int, chips: float, code_len: int = 4092,
+                      code_rate: float = 1.023e6) -> float | None:
+        if self.tow_ref is None:
+            return None
+        de = epoch - self.tow_ref.epoch
+        return self.tow_ref.tow_s + (de * code_len + chips) / code_rate
+
+    def ephemeris(self) -> KeplerEphemeris | None:
+        return self.assembler.ephemeris()
+
+
 def make_telemetry(signal: str, prn: int):
     """Telemetry decoder factory by signal code (reference:
-    GNSSBlockFactory::GetTlmBlock). Only GPS L1 C/A LNAV is ported so far."""
+    GNSSBlockFactory::GetTlmBlock). GPS L1 C/A LNAV and Galileo E1-B I/NAV
+    are ported so far."""
     if signal == "1C" and prn < 120:
         return GpsL1CaTelemetry(prn)
+    if signal == "1B":
+        return GalileoE1BTelemetry(prn)
     raise NotImplementedError(
         f"telemetry for signal {signal!r} PRN {prn} is not ported yet")

@@ -447,6 +447,22 @@ def track_chunk_packed(cfg: TrackingConfig, chunk: torch.Tensor,
     return new_state, packed
 
 
+def track_multi_packed(cfgs: tuple, chunk: torch.Tensor, states: tuple,
+                       code_tables: tuple, sec_tables: tuple, slabs: tuple):
+    """Every signal group's tracking dispatch on one shared chunk, each on
+    its slab, with all packed host outputs flattened into one float32
+    vector, group after group -> (new carries, flat [sum S*C*13]). On the
+    card each group is one K2 launch (:func:`track_chunk_packed`); the host
+    splits the vector by the groups' [S, C, 13] sizes."""
+    new_states, flats = [], []
+    for cfg, st, tab, sec, slab in zip(cfgs, states, code_tables,
+                                       sec_tables, slabs):
+        ns, packed = track_chunk_packed(cfg, chunk, st, tab, sec, slab=slab)
+        new_states.append(ns)
+        flats.append(packed.reshape(-1))
+    return tuple(new_states), torch.cat(flats)
+
+
 def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,
                 code_tables: torch.Tensor,
                 sec_tables: torch.Tensor | None = None,
@@ -461,7 +477,8 @@ def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,
         from the next chunk); int8 / packed-nibble uploads are dequantized
         first (ops/iq.py).
       state: carry from the previous chunk.
-      code_tables: [C, Lc*table_rate] float32 per-channel code tables.
+      code_tables: [C, Lc*table_rate] float32 per-channel code tables
+        ([C, 2, Lc*table_rate] when cfg.track_pilot: [pilot, data]).
       sec_tables: [C, S] float32 +-1 secondary-code chips (see
         :func:`set_secondary`); None = no wipeoff anywhere.
       correlate: the multicorrelator, with the arguments of
@@ -476,9 +493,6 @@ def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,
     if cfg.carrier_kf:
         raise NotImplementedError("carrier_kf: the Kalman carrier loop is "
                                   "not ported yet")
-    if cfg.track_pilot:
-        raise NotImplementedError("track_pilot: pilot tracking is not "
-                                  "ported yet")
     chunk = iq.as_iq2(chunk)
     dev = chunk.device
     inv_fs = float(np.float32(1.0 / cfg.fs))   # x / fs rounds as x * inv_fs
@@ -486,7 +500,10 @@ def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,
     prompt_i = cfg.prompt_index
     chunk_len = cfg.chunk_len
     n_ch = code_tables.shape[0]
-    taps = torch.tensor(cfg.tap_offsets, dtype=torch.float32, device=dev)
+    # pilot tracking adds the data prompt: one more tap, at offset 0, on
+    # the data component of the [C, 2, Lt] tables
+    tap_off = tuple(cfg.tap_offsets) + ((0.0,) if cfg.track_pilot else ())
+    taps = torch.tensor(tap_off, dtype=torch.float32, device=dev)
     spacing = float(cfg.tap_offsets[prompt_i + 1] - cfg.tap_offsets[prompt_i])
     code_to_carrier = float(np.float32(cfg.code_to_carrier))
     fll_gain = float(np.float32(4.0 * cfg.fll_bw_hz))
@@ -499,8 +516,12 @@ def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,
     for _ in range(cfg.n_steps):
         cps = st.code_freq * inv_fs
         safe_cps = torch.clamp(cps, min=float(np.float32(1e-6)))
-        n_samp = torch.ceil((code_len - st.rem_code_phase) / safe_cps
-                            ).to(torch.int32)
+        # bounded before the int conversion, which saturates in XLA but not
+        # on every PyTorch device (an idle channel's 4092 chips / 1e-6 is
+        # past int32)
+        n_samp = torch.clamp(torch.ceil((code_len - st.rem_code_phase)
+                                        / safe_cps), max=float(cfg.n_max)
+                             ).to(torch.int32)
         n_samp = torch.clamp(n_samp, 1, cfg.n_max)
         n_samp_f = n_samp.to(torch.float32)
         tracking = st.active & (st.state > STANDBY)
@@ -511,7 +532,8 @@ def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,
             chunk, safe_off, torch.where(valid, n_samp, zero_i), code_tables,
             st.rem_code_phase, cps, st.carr_phase_frac,
             st.carrier_freq * inv_fs, taps, n_max=cfg.n_max,
-            table_rate=cfg.table_rate)                          # [C, K, 2]
+            table_rate=cfg.table_rate,
+            tap_components=cfg.tap_components)                  # [C, K, 2]
 
         dt = n_samp_f * inv_fs
         eidx = st.epoch_count

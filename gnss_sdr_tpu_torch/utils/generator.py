@@ -44,11 +44,15 @@ def _pm(seq) -> np.ndarray:
     return 1.0 - 2.0 * a if a.min() >= 0.0 else a
 
 
-def _gen_block(spec, sats, fs, if_freq_hz, n0: int, n: int) -> np.ndarray:
-    """Signal (no noise) for samples [n0, n0+n), float64 time base, data
-    component only (pilot components come with the signals that have them);
-    a spec's secondary code (NH/CS overlay, one chip per primary code
-    period) modulates it, as on the real signals.
+def _gen_block(spec, sats, fs, if_freq_hz, n0: int, n: int,
+               with_pilot: bool = False,
+               apply_secondary: bool = True) -> np.ndarray:
+    """Signal (no noise) for samples [n0, n0+n), float64 time base.
+
+    apply_secondary: modulate the data component with spec.secondary_code
+    (NH/CS overlay, one chip per primary code period), as the real signals
+    do. with_pilot: additionally emit the pilot component (same per-component
+    C/N0) with its own code and secondary (E1-C/CS25, E5a-Q/CS100, L5Q).
 
     Phases (carrier + code) are tracked in float64 — the code delay needs
     ~ns resolution over minutes of signal — but the carrier is synthesized
@@ -85,7 +89,7 @@ def _gen_block(spec, sats, fs, if_freq_hz, n0: int, n: int) -> np.ndarray:
             code = code * sub
         # BeiDou GEO satellites (PRN 1-5) transmit D2 with no NH overlay
         nh_free_geo = spec.system == "C" and sp.prn <= 5
-        if spec.secondary_code and not nh_free_geo:
+        if apply_secondary and spec.secondary_code and not nh_free_geo:
             sec = _pm([int(b) for b in spec.secondary_code]).astype(np.float32)
             code = code * sec[period_idx % len(sec)]
         if sp.data_bits is not None:
@@ -95,6 +99,16 @@ def _gen_block(spec, sats, fs, if_freq_hz, n0: int, n: int) -> np.ndarray:
         else:
             comp = code
         amp = np.float32(np.sqrt(10.0 ** (sp.cn0_dbhz / 10.0) / fs))
+        if with_pilot and codes.has_pilot(spec.signal):
+            pchips = codes.pilot_code_chips(spec.signal, sp.prn).astype(np.float32)
+            pcode = pchips[chip_idx % len(pchips)]
+            if spec.subcarrier_rate_hz > 0:
+                pcode = pcode * sub
+            psec = codes.pilot_secondary_chips(spec.signal, sp.prn)
+            if psec is not None:
+                psec = _pm(psec).astype(np.float32)
+                pcode = pcode * psec[period_idx % len(psec)]
+            comp = comp + pcode
         # carrier: float64 cycles -> fractional cycle -> float32 sincos
         cyc = if_freq_hz * t + phase
         theta = ((cyc - np.floor(cyc)) * (2.0 * np.pi)).astype(np.float32)
@@ -110,7 +124,9 @@ def _gen_block(spec, sats, fs, if_freq_hz, n0: int, n: int) -> np.ndarray:
 def generate(spec: constants.SignalSpec, sats: list[SatParams], fs: float,
              duration_s: float, *, if_freq_hz: float = 0.0,
              noise: bool = True, seed: int = 0,
-             dtype=np.complex64, block_s: float = 2.0) -> np.ndarray:
+             dtype=np.complex64, block_s: float = 2.0,
+             with_pilot: bool = False,
+             apply_secondary: bool = True) -> np.ndarray:
     """Generate baseband IQ samples (block-wise to bound peak memory).
 
     Noise is complex white Gaussian with unit variance per sample, so a
@@ -122,7 +138,8 @@ def generate(spec: constants.SignalSpec, sats: list[SatParams], fs: float,
     block = int(fs * block_s)
     for n0 in range(0, n, block):
         nb = min(block, n - n0)
-        x = _gen_block(spec, sats, fs, if_freq_hz, n0, nb)
+        x = _gen_block(spec, sats, fs, if_freq_hz, n0, nb,
+                       with_pilot=with_pilot, apply_secondary=apply_secondary)
         if noise:
             x = x + (rng.standard_normal(nb) + 1j * rng.standard_normal(nb)) / np.sqrt(2.0)
         out[n0:n0 + nb] = x.astype(dtype)

@@ -129,45 +129,122 @@ def build_gps_l1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0)
     return sc
 
 
-# 5 satellites (prn, Doppler Hz, code delay s) for tracking_handoff_case
-_HANDOFF_SATS = ((3, 1200.0, 1.1e-4), (7, -2400.0, 3.3e-4), (11, 350.0, 6.1e-4),
-                 (19, 3900.0, 8.4e-4), (24, -800.0, 2.0e-4))
+def build_galileo_e1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0),
+                              t0_gps: float = 352800.13, duration_s: float = 18.0,
+                              fs: float = 4.0e6, n_sats: int = 5,
+                              cn0_dbhz: float = 48.0,
+                              vis_offset: int = 0,
+                              el_mask_deg: float = 15.0) -> Scenario:
+    """Galileo E1-B (CBOC-as-BOC(1,1)) signal-level scenario with I/NAV.
+
+    Pages cycle word types 1..5 (2 s each), so the full ephemeris + GST
+    anchor arrive within 10 s of page sync.
+
+    ``vis_offset`` skips the first K entries of the elevation-sorted
+    visible list. The GPS and Galileo builders share one simulated
+    constellation, so a hybrid scenario built from both with offset 0
+    puts a Galileo satellite at every GPS satellite's position — the
+    mixed fix then has the DOP of a single 4-satellite set plus an extra
+    clock unknown. An offset gives the second system disjoint geometry,
+    as a real sky would.
+    """
+    from gnss_sdr_tpu_torch.models.nav import galileo_inav
+
+    spec = constants.GALILEO_E1_B
+    ephs = constellation.almanac_constellation()
+    for e in ephs.values():
+        e.tgd = 0.0
+        e.gm = constants.GM_EARTH_GAL
+    rcv = geodesy.geodetic_to_ecef(*rcv_llh)
+    vis = constellation.visible_sats(ephs, rcv, t0_gps,
+                                     el_mask_deg=el_mask_deg)
+    chosen = [prn for prn, _, _ in vis[vis_offset: vis_offset + n_sats]]
+    if len(chosen) < n_sats:
+        raise RuntimeError(f"only {len(chosen)} visible sats")
+
+    fc = spec.carrier_freq_hz
+    t_tx0 = {prn: constellation.simulate_observation(ephs[prn], rcv, t0_gps).t_tx_sv
+             for prn in chosen}
+    # symbol stream origin: a 2 s page boundary before the earliest t_tx(0)
+    tow_sym_start = 2.0 * np.floor(min(t_tx0.values()) / 2.0)
+    n_pages = int(np.ceil((duration_s + 4.0) / 2.0)) + 1
+
+    sats = []
+    for prn in chosen:
+        eph = ephs[prn]
+        a3, a2, a1, a0 = _fit_t_tx(eph, rcv, t0_gps, duration_s)
+        symbols = galileo_inav.encode_stream(eph, tow_sym_start, n_pages)
+        sats.append(generator.SatParams(
+            prn=prn, cn0_dbhz=cn0_dbhz,
+            carrier_phase_cycles=_geometric_phase0(fc, a0),
+            doppler_hz=fc * (a1 - 1.0), doppler_rate_hz_s=fc * 2.0 * a2,
+            doppler_jerk_hz_s2=fc * 6.0 * a3,
+            code_delay_s=tow_sym_start - a0,
+            data_bits=generator.lnav_bits_to_symbols(symbols)))
+
+    return Scenario(rcv_ecef=rcv, rcv_llh=rcv_llh, t0_gps=t0_gps,
+                    tow_bits_start=tow_sym_start, duration_s=duration_s,
+                    fs=fs, ephemerides=ephs, sats=sats, prns=chosen,
+                    spec=spec)
 
 
-def tracking_handoff_case(device, *, chunks: int = 1, extended: bool = False,
-                          n_channels: int = 6, fs: float = 2.0e6,
+# 5 satellites (prn, Doppler Hz, code delay s) per signal for
+# tracking_handoff_case (Galileo delays within its 4 ms code period)
+_HANDOFF_SATS = {
+    "1C": ((3, 1200.0, 1.1e-4), (7, -2400.0, 3.3e-4), (11, 350.0, 6.1e-4),
+           (19, 3900.0, 8.4e-4), (24, -800.0, 2.0e-4)),
+    "1B": ((5, 1100.0, 3.1e-4), (19, -2300.0, 1.7e-3), (17, 420.0, 2.9e-3),
+           (10, 3600.0, 6.3e-4), (24, -900.0, 3.7e-3)),
+}
+
+
+def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
+                          chunks: int = 1, extended: bool = False,
+                          n_channels: int = 6, fs: float | None = None,
                           seed: int = 11) -> dict:
-    """An open-loop tracking input: 5 generated GPS L1 C/A satellites
-    (45-49 dB-Hz) on ``n_channels`` channels, every channel but the last
-    (idle) handed off to satellite ``ch % 5`` slightly off the truth (+15 Hz
-    in code rate, 15 Hz steps of Doppler error), over one dispatch of
-    ``chunks`` 100 ms chunks plus the halo. ``extended`` switches channels 1
-    and 3 to 20-epoch coherent integration and gives channel 3 a 10-chip
-    secondary code.
+    """An open-loop tracking input: 5 generated satellites of ``signal``
+    ("1C": GPS L1 C/A at 2 MSps; "1B": Galileo E1-B with its E1-C pilot at
+    4 MSps, BOC(1,1) tables at 2 entries per chip), 45-49 dB-Hz, on
+    ``n_channels`` channels, every channel but the last (idle) handed off to
+    satellite ``ch % 5`` slightly off the truth (+15 Hz in code rate, 15 Hz
+    steps of Doppler error), over one dispatch of ``chunks`` 100 ms chunks
+    plus the halo. ``pilot`` tracks the E1-C pilot with an E1-B data prompt
+    ([C, 2, Lt] tables). ``extended`` switches channel 1 to coherent
+    integration over a bit (20 epochs for GPS, 5 for Galileo) and channel
+    3 to the same with a secondary-code wipe (a 10-chip code for GPS, the
+    E1-C CS25 for Galileo).
 
     Returns dict(cfg, chunk [L, 2] float32 numpy, state (the carry on
-    ``device``), tables [C, 1023] float32 numpy, sec [C, 32] float32 numpy
-    or None)."""
+    ``device``), tables [C, Lt] or [C, 2, Lt] float32 numpy, sec [C, 32]
+    float32 numpy or None)."""
     import dataclasses as _dc
 
     from gnss_sdr_tpu_torch.models import codes
     from gnss_sdr_tpu_torch.receiver import tracking as trk
 
-    spec = constants.GPS_L1_CA
-    cfg = trk.default_config(spec, fs, 100)
+    spec = constants.SIGNALS[signal]
+    fs = fs or (2.0e6 if signal == "1C" else 4.0e6)
+    cfg = trk.default_config(spec, fs, 100, track_pilot=pilot)
     if chunks > 1:
         cl = cfg.chunk_len * chunks
         cfg = _dc.replace(cfg, chunk_len=cl, n_steps=int(
             np.ceil(cl / cfg.samples_per_code)) + 2)
     sats = [generator.SatParams(prn=p, cn0_dbhz=45.0 + i, doppler_hz=d,
                                 code_delay_s=cd)
-            for i, (p, d, cd) in enumerate(_HANDOFF_SATS)]
+            for i, (p, d, cd) in enumerate(_HANDOFF_SATS[signal])]
     n = cfg.chunk_len + cfg.n_max
-    x = generator.generate(spec, sats, fs, n / fs, seed=seed)
+    x = generator.generate(spec, sats, fs, n / fs, seed=seed,
+                           with_pilot=codes.has_pilot(signal))
     chunk = np.stack([x.real, x.imag], -1).astype(np.float32)
     n_ch = n_channels
     state = trk.init_state(n_ch, cfg.n_taps, device=device)
-    tables = np.zeros((n_ch, spec.code_length_chips), np.float32)
+    lt = spec.code_length_chips * cfg.table_rate
+    tables = np.zeros((n_ch, 2, lt) if pilot else (n_ch, lt), np.float32)
+    sub = np.tile([1.0, -1.0], spec.code_length_chips).astype(np.float32)
+
+    def table(chips):
+        return np.repeat(chips, 2) * sub if cfg.table_rate == 2 else chips
+
     spc = fs / spec.code_rate_cps
     for ch in range(n_ch - 1):
         sp = sats[ch % len(sats)]
@@ -178,12 +255,23 @@ def tracking_handoff_case(device, *, chunks: int = 1, extended: bool = False,
                 1 + (sp.doppler_hz + 15.0) / spec.carrier_freq_hz),
             doppler_hz=sp.doppler_hz + 15.0 * (ch % len(sats) - 2),
             sample_offset=off, rem_code_phase=float((off - start) / spc))
-        tables[ch] = codes.code_chips("1C", sp.prn)
+        data = table(codes.code_chips(signal, sp.prn))
+        if pilot:
+            tables[ch, 0] = table(codes.pilot_code_chips(signal, sp.prn))
+            tables[ch, 1] = data
+        else:
+            tables[ch] = data
     sec = None
     if extended:
         sec = np.ones((n_ch, cfg.sec_table_len), np.float32)
-        state = trk.set_extension(state, 1, 20, 7)
-        state = trk.set_extension(state, 3, 20, 0)
-        state = trk.set_secondary(state, sec, 3,
-                                  [0, 0, 1, 0, 1, 1, 0, 1, 0, 0], 2)
+        if signal == "1C":
+            state = trk.set_extension(state, 1, 20, 7)
+            state = trk.set_extension(state, 3, 20, 0)
+            state = trk.set_secondary(state, sec, 3,
+                                      [0, 0, 1, 0, 1, 1, 0, 1, 0, 0], 2)
+        else:
+            state = trk.set_extension(state, 1, 5, 2)
+            state = trk.set_extension(state, 3, 5, 0)
+            state = trk.set_secondary(
+                state, sec, 3, codes.pilot_secondary_chips(signal, 17), 0)
     return dict(cfg=cfg, chunk=chunk, state=state, tables=tables, sec=sec)

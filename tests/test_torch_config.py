@@ -40,7 +40,7 @@ UNPORTED = {
     "glonass_l2": ("receiver", "signal"),
     "gps_l2c": ("receiver", "signal"),
     "gps_l5": ("receiver", "signal"),
-    "hybrid_gps_galileo": ("receiver", "signal_plan"),
+    "hybrid_gps_galileo": None,
     "ppp_static": ("receiver", "signal_plan"),
     "gps_l1_notch": ("registry", "InputFilter.implementation=Notch_Filter"),
     "labsat3": ("registry",
@@ -203,3 +203,43 @@ def test_rate_conditioner_block_lengths_match_jax():
         jc, jlen = jrx.make_rate_conditioner(fs_in, fs_out, 200000)
         tc, tlen = trx.make_rate_conditioner(fs_in, fs_out, 200000, "cpu")
         assert tlen == jlen and (tc is None) == (jc is None)
+
+
+def test_check_ported_galileo_e1_names():
+    """The Galileo E1 blocks of this receiver (PCPS acquisition, VEML
+    tracking, the E1-B telemetry decoder) pass; the E1 blocks the port lacks
+    and the other Galileo, GLONASS and BeiDou blocks still raise."""
+    ok = ("Channels_1B.count=4\n"
+          "Acquisition_1B.implementation=Galileo_E1_PCPS_Ambiguous_"
+          "Acquisition\n"
+          "Tracking_1B.implementation=Galileo_E1_DLL_PLL_VEML_Tracking\n"
+          "Tracking_1B.track_pilot=true\n"
+          "TelemetryDecoder_1B.implementation=Galileo_E1B_Telemetry_"
+          "Decoder\n")
+    jc, tc = _both(ok)
+    cfg = tini.receiver_config_from_ini(tc)
+    assert (dataclasses.asdict(cfg)
+            == dataclasses.asdict(jini.receiver_config_from_ini(jc)))
+    assert cfg.signal == "1B" and cfg.track_pilot
+    treg.check_ported(tc, cfg.signal_plan)
+    trx.Receiver(cfg, device="cpu")
+    for text, named in (
+            ("Channels_1B.count=4\nAcquisition_1B.implementation="
+             "Galileo_E1_PCPS_8ms_Ambiguous_Acquisition\n",
+             "Acquisition_1B.implementation=Galileo_E1_PCPS_8ms"),
+            ("Channels_1B.count=4\nTracking_1B.implementation="
+             "Galileo_E1_TCP_CONNECTOR_Tracking\n",
+             "Tracking_1B.implementation=Galileo_E1_TCP_CONNECTOR"),
+            ("Channels_5X.count=4\nTracking_5X.implementation="
+             "Galileo_E5a_DLL_PLL_Tracking\n",
+             "Tracking_5X.implementation=Galileo_E5a_DLL_PLL_Tracking"),
+            ("Channels_1G.count=4\nTelemetryDecoder_1G.implementation="
+             "GLONASS_L1_CA_Telemetry_Decoder\n",
+             "TelemetryDecoder_1G.implementation=GLONASS_L1_CA"),
+            ("Channels_B1.count=4\nAcquisition_B1.implementation="
+             "BEIDOU_B1I_PCPS_Acquisition\n",
+             "Acquisition_B1.implementation=BEIDOU_B1I")):
+        _, tc = _both(text)
+        cfg = tini.receiver_config_from_ini(tc)
+        with pytest.raises(NotImplementedError, match=named):
+            treg.check_ported(tc, cfg.signal_plan)

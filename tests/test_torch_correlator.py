@@ -119,7 +119,8 @@ def test_wrapper_contract():
     np.testing.assert_allclose(
         _port(c8).numpy(), _port(dict(c, chunk=q.astype(np.float32) / 16)).numpy(),
         rtol=1e-6, atol=1e-5)
-    with pytest.raises(NotImplementedError):
+    # per-tap components need [C, G, Lt] tables
+    with pytest.raises(ValueError):
         tcorr.batch_epoch_correlate(
             *(torch.from_numpy(np.asarray(c[k])) for k in NAMES),
             n_max=c["n_max"], tap_components=(0, 0, 1))

@@ -229,9 +229,11 @@ def test_wrapper_checks():
     for exc, change in bad_cases:
         with pytest.raises(exc):
             tk._check(cfg, **dict(good, **change))
-    for field in ("carrier_kf", "track_pilot"):
-        with pytest.raises(NotImplementedError):
-            tk._check(dataclasses.replace(cfg, **{field: True}), **good)
+    with pytest.raises(NotImplementedError):
+        tk._check(dataclasses.replace(cfg, carrier_kf=True), **good)
+    # pilot tracking takes [C, 2, Lt] tables (and one more tap's carry)
+    with pytest.raises(ValueError):
+        tk._check(dataclasses.replace(cfg, track_pilot=True), **good)
     nine = dataclasses.replace(cfg, tap_offsets=tuple(np.linspace(-1, 1, 9)))
     with pytest.raises(ValueError):
         tk._check(nine, **good)
