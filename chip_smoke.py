@@ -28,19 +28,25 @@ Phases, one line each, with their seconds:
             tracking with the E1-B data prompt, alone and with extended
             integration + the CS25 wipe, (g) one two-group dispatch (GPS at
             4 MSps + E1 pilot on one shared chunk, one launch per group);
-            after the main and hybrid phases, the receivers' final carries
-            (channels in NARROW_TRACK). Packed int32 columns, valid, the loss
-            flag and the carry's int / bool fields equal; float columns and
-            float carry fields within rtol 1e-4 / atol 1e-4; the prompt
+            the wideband shapes (102 steps, 10,230-entry tables, three
+            4096-sample tiles per epoch): (h) GPS L5I at 11 MSps, C=4, (i)
+            L5Q pilot tracking with the NH10 wipe after the extension, (j)
+            Galileo E5a-I at 12 MSps, C=4, with the CS20 wipe, (k) E5a-Q
+            pilot tracking; after the main, hybrid, l5 and e5a phases, the
+            receivers' final carries (channels in NARROW_TRACK). Packed
+            int32 columns, valid, the loss flag and the carry's int / bool
+            fields equal; float columns and float carry fields within rtol
+            1e-4 / atol 1e-4; the prompt
             within |dz| <= 1e-4 |z| + 1e-4 (tests/test_torch_tracking.py's
             tolerances).
 5. timing   K1 and its plain version at shapes (a) and (b), CUDA events over
             500 launches each after a warm-up, in turns (plain, kernel,
             kernel, plain), beside the bound computed from the shapes; K2
-            per 100 ms chunk at the GPS shape (C=8 and C=128) and the E1
-            pilot shape (C=6 and C=128), in turns with the eager loop on the
-            plain correlator (and, for GPS, the eager loop on K1), beside
-            K2's bound.
+            per 100 ms chunk at the GPS shape (C=8 and C=128), the E1
+            pilot shape (C=6 and C=128), GPS L5 (C=4 and C=128) and the
+            E5a pilot shape (C=4 and C=128), in turns with the eager loop on
+            the plain correlator (and, for single-component tables, the
+            eager loop on K1), beside K2's bound.
 6. main     the port's receiver on a generated 28 s, 6-satellite, 47 dB-Hz
             GPS L1 C/A scenario at 2 MSps (seed 123): all satellites tracked,
             ephemerides decoded, fixes within 2D < 2 m / 3D < 5 m of the
@@ -72,6 +78,17 @@ Phases, one line each, with their seconds:
             launch per group dispatch; the host seconds of each stage. Then
             the shipped conf/hybrid_gps_galileo.conf through the CLI on that
             capture (phase_cli_hybrid).
+10. l5, e5a the in-process GPS L5I and Galileo E5a receivers (4 channels)
+            on tests/test_e2e_l5.py's and tests/test_e2e_e5a.py's scenarios
+            (30 s at 11 MSps, seed 77; ~47 s at 12 MSps, seed 87; 4
+            satellites at 50 dB-Hz), generated with the pilot component,
+            the signal sum on the card: all satellites tracked, >= 4
+            ephemerides equal to the truth, the last 5 fixes within 2D < 2 m
+            / 3D < 5 m, one K2 launch per dispatch and no K1 launch, the
+            host seconds of each stage; K2 on the final carry; then the
+            shipped conf/gps_l5.conf (L5Q pilot tracking) and
+            conf/galileo_e5a.conf (noncoherent I/Q CAF acquisition) through
+            the CLI on that capture (phase_cli_wideband).
 
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit, then the result line. Float32 matrix products run in
@@ -480,7 +497,17 @@ K2_CASES = (("plain", {}), ("extended", dict(extended=True)),
             ("e_e1b", dict(signal="1B")),
             ("f_e1_pilot", dict(signal="1B", pilot=True)),
             ("f_e1_pilot_extended", dict(signal="1B", pilot=True,
-                                         extended=True)))
+                                         extended=True)),
+            # the wideband shapes, 102 steps per chunk, 10,230-entry tables,
+            # three 4096-sample tiles per epoch: (h) GPS L5I at 11 MSps,
+            # C=4; (i) L5Q pilot tracking with the NH10 wipe after the
+            # extension; (j) Galileo E5a-I at 12 MSps, C=4, with the CS20
+            # wipe; (k) E5a-Q pilot tracking
+            ("h_l5", dict(signal="L5", n_channels=4)),
+            ("i_l5_pilot_nh10", dict(signal="L5", pilot=True,
+                                     extended=True)),
+            ("j_e5a_cs20", dict(signal="5X", n_channels=4, extended=True)),
+            ("k_e5a_pilot", dict(signal="5X", pilot=True)))
 
 
 def phase_k2(device, with_k16: bool) -> dict:
@@ -514,11 +541,17 @@ def k2_work(cfg, out, n_ch: int, table_len: int, width: int) -> tuple:
     return float(nbytes), float(flops)
 
 
-# K2's timing shapes: GPS L1 C/A at 2 MSps (the main path's), and Galileo
-# E1-B + E1-C pilot at 4 MSps (the hybrid receiver's Galileo group)
+# K2's timing shapes: GPS L1 C/A at 2 MSps (the main path's), Galileo
+# E1-B + E1-C pilot at 4 MSps (the hybrid receiver's Galileo group), GPS L5I
+# at 11 MSps and Galileo E5a-I + E5a-Q pilot at 12 MSps
 K2_TIMING = (("k2_c8", dict(n_channels=8)), ("k2_c128", dict(n_channels=128)),
              ("k2_e1p_c6", dict(signal="1B", pilot=True, n_channels=6)),
-             ("k2_e1p_c128", dict(signal="1B", pilot=True, n_channels=128)))
+             ("k2_e1p_c128", dict(signal="1B", pilot=True, n_channels=128)),
+             ("k2_l5_c4", dict(signal="L5", n_channels=4)),
+             ("k2_l5_c128", dict(signal="L5", n_channels=128)),
+             ("k2_e5ap_c4", dict(signal="5X", pilot=True, n_channels=4)),
+             ("k2_e5ap_c128", dict(signal="5X", pilot=True,
+                                   n_channels=128)))
 
 
 def phase_timing_k2(device, smi: str) -> dict:
@@ -612,6 +645,22 @@ def _timed(rx, names, acc: dict) -> None:
         setattr(rx, name, wrapper)
 
 
+def _breakdown(phase: str, t0: float, spent: dict, rx, **extra) -> None:
+    """The host seconds of each receiver stage (``_timed``) as one line;
+    the wait for the packed outputs is finish minus consume."""
+    wait = spent["_finish_tracking"] - spent["_consume_tracking"]
+    n_disp = max(rx.tracking_dispatches, 1)
+    _line(phase, t0, step="breakdown",
+          upload_s=f"{spent['_upload']:.3f}",
+          acquisition_s=f"{spent['_run_acquisition']:.3f}",
+          tracking_enqueue_s=f"{spent['_dispatch_tracking']:.3f}",
+          tracking_wait_s=f"{wait:.3f}",
+          telemetry_consume_s=f"{spent['_consume_tracking']:.3f}",
+          observables_pvt_s=f"{spent['_run_observables']:.3f}",
+          enqueue_us_per_dispatch=f"{spent['_dispatch_tracking'] / n_disp * 1e6:.1f}",
+          **extra)
+
+
 def phase_main(device, duration_s: float, check_fix: bool) -> dict:
     from gnss_sdr_tpu_torch.io.sources import ArraySignalSource
     from gnss_sdr_tpu_torch.ops import correlator
@@ -655,17 +704,8 @@ def phase_main(device, duration_s: float, check_fix: bool) -> dict:
           realtime_x=f"{duration_s / wall:.3f}", tracked=tracked,
           scan_steps=rx.scan_steps, dispatches=rx.tracking_dispatches,
           k2_launches=k2, k1_launches=k1, max_memory_allocated=peak)
-    wait = spent["_finish_tracking"] - spent["_consume_tracking"]
-    n_disp = max(rx.tracking_dispatches, 1)
-    _line("main", t0, step="breakdown",
-          upload_s=f"{spent['_upload']:.3f}",
-          acquisition_s=f"{spent['_run_acquisition']:.3f}",
-          tracking_enqueue_s=f"{spent['_dispatch_tracking']:.3f}",
-          tracking_wait_s=f"{wait:.3f}",
-          telemetry_consume_s=f"{spent['_consume_tracking']:.3f}",
-          observables_pvt_s=f"{spent['_run_observables']:.3f}",
-          enqueue_us_per_dispatch=f"{spent['_dispatch_tracking'] / n_disp * 1e6:.1f}",
-          enqueue_us_per_step=f"{spent['_dispatch_tracking'] / max(rx.scan_steps, 1) * 1e6:.3f}")
+    _breakdown("main", t0, spent, rx,
+               enqueue_us_per_step=f"{spent['_dispatch_tracking'] / max(rx.scan_steps, 1) * 1e6:.3f}")
     if tracked != sorted(sc.prns):
         raise SystemExit(f"tracked {tracked}, expected {sorted(sc.prns)}")
     if device.type == "cuda" and not (k2 == rx.tracking_dispatches > 0
@@ -869,13 +909,38 @@ def _summary(stdout: str) -> dict:
     return got
 
 
+def _cli_fix_error(got: dict, sc) -> dict:
+    """The CLI's last fix (``_summary``'s ``fix_llh``) against the
+    scenario's truth: {err_2d_m, err_3d_m}, empty without a fix."""
+    from gnss_sdr_tpu_torch.receiver.pvt import geodesy
+
+    if "fix_llh" not in got:
+        return {}
+    lat, lon, h = got["fix_llh"]
+    pos = geodesy.geodetic_to_ecef(np.deg2rad(lat), np.deg2rad(lon), h)
+    enu = geodesy.ecef_to_enu(pos - sc.rcv_ecef, *sc.rcv_llh[:2])
+    return dict(err_2d_m=float(np.hypot(enu[0], enu[1])),
+                err_3d_m=float(np.linalg.norm(enu)))
+
+
+def _nav_of(rx, path) -> dict:
+    """The receiver's ephemerides through the RINEX nav writer and reader,
+    as the CLI's nav file holds them."""
+    from gnss_sdr_tpu_torch.receiver.pvt.rinex import (RinexNavReader,
+                                                       RinexNavWriter)
+
+    w = RinexNavWriter(path)
+    for (sys_, _), e in rx.ephemerides.items():
+        w.write_ephemeris(e, system=sys_)
+    w.close()
+    return RinexNavReader(path).read() if rx.ephemerides else {}
+
+
 def phase_cli(device, main_run: dict, cond_s: float) -> int:
     """The CLI on the main phase's capture (checks above, phase 8), then a
     conditioned run of ``cond_s`` seconds at 4 MSps. Returns the CLI's K2
     launches."""
-    from gnss_sdr_tpu_torch.receiver.pvt import geodesy
     from gnss_sdr_tpu_torch.receiver.pvt.rinex import (RinexNavReader,
-                                                       RinexNavWriter,
                                                        RinexObsReader)
     from gnss_sdr_tpu_torch.utils import scenario
 
@@ -903,25 +968,14 @@ def phase_cli(device, main_run: dict, cond_s: float) -> int:
                            RinexObsReader(tmp / "out.obs").read_epochs()
                            for o in ep})
         nav = RinexNavReader(tmp / "out.nav").read()
-        # the main phase's ephemerides through the same writer and reader
-        w = RinexNavWriter(tmp / "main.nav")
-        for (sys_, _), e in rx.ephemerides.items():
-            w.write_ephemeris(e, system=sys_)
-        w.close()
-        main_nav = RinexNavReader(tmp / "main.nav").read()
+        main_nav = _nav_of(rx, tmp / "main.nav")
         eph_equal = (sorted(nav) == sorted(main_nav) and all(
             dataclasses.asdict(nav[k]) == dataclasses.asdict(main_nav[k])
             for k in nav))
         checks = dict(device_line=f"device: {platform}" in stderr,
                       gga=nmea.count("$GPGGA"), obs_prns=obs_prns,
                       nav_ephemerides=len(nav), eph_equal_main=eph_equal)
-        err = {}
-        if "fix_llh" in got:
-            lat, lon, h = got["fix_llh"]
-            pos = geodesy.geodetic_to_ecef(np.deg2rad(lat), np.deg2rad(lon), h)
-            enu = geodesy.ecef_to_enu(pos - sc.rcv_ecef, *sc.rcv_llh[:2])
-            err = dict(err_2d_m=float(np.hypot(enu[0], enu[1])),
-                       err_3d_m=float(np.linalg.norm(enu)))
+        err = _cli_fix_error(got, sc)
         _line("cli", t0, run="capture", cli_seconds=f"{cli_s:.3f}",
               tracked=got["tracked"], tracking_dispatches=got["dispatches"],
               k2_launches=got["k2"], k1_launches=got["k1"],
@@ -971,13 +1025,14 @@ HYB_FS = 4.0e6
 HYB_T0 = 352800.13
 
 
-def hybrid_capture(duration_s: float) -> dict:
+def hybrid_capture(duration_s: float, device=None) -> dict:
     """tests/test_e2e_hybrid.py's scenario: 4 GPS L1 C/A satellites at 47
     dB-Hz and 4 Galileo E1 satellites at 48 dB-Hz (vis_offset 3, 0 degree
     mask) on one 4 MSps stream, clean signals from seeds 31 and 32 summed
     with one unit-variance noise floor from seed 33. The Galileo signals
     carry their E1-C pilot (with CS25), as real E1 signals do, so the
-    shipped conf's pilot tracking has a pilot to track."""
+    shipped conf's pilot tracking has a pilot to track. With a ``device``
+    the clean signals are summed there (the generator's torch path)."""
     from gnss_sdr_tpu_torch.utils import generator, scenario
 
     sc_g = scenario.build_gps_l1_scenario(t0_gps=HYB_T0, duration_s=duration_s,
@@ -985,9 +1040,10 @@ def hybrid_capture(duration_s: float) -> dict:
     sc_e = scenario.build_galileo_e1_scenario(
         t0_gps=HYB_T0, duration_s=duration_s, fs=HYB_FS, n_sats=4,
         cn0_dbhz=48.0, vis_offset=3, el_mask_deg=0.0)
-    x = sc_g.generate(seed=31, noise=False)
+    x = sc_g.generate(seed=31, noise=False, device=device)
     x += generator.generate(sc_e.spec, sc_e.sats, HYB_FS, duration_s,
-                            seed=32, noise=False, with_pilot=True)
+                            seed=32, noise=False, with_pilot=True,
+                            device=device)
     rng = np.random.default_rng(33)
     n = len(x)
     x += ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
@@ -1047,15 +1103,7 @@ def phase_hybrid(device, cap: dict, check: bool) -> dict:
           scenario_gal=sorted(sc_e.prns), chunks=rx._chunk_index,
           group_dispatches=rx.tracking_dispatches, scan_steps=rx.scan_steps,
           k2_launches=k2, k1_launches=k1)
-    wait = spent["_finish_tracking"] - spent["_consume_tracking"]
-    _line("hybrid", t0, step="breakdown",
-          upload_s=f"{spent['_upload']:.3f}",
-          acquisition_s=f"{spent['_run_acquisition']:.3f}",
-          tracking_enqueue_s=f"{spent['_dispatch_tracking']:.3f}",
-          tracking_wait_s=f"{wait:.3f}",
-          telemetry_consume_s=f"{spent['_consume_tracking']:.3f}",
-          observables_pvt_s=f"{spent['_run_observables']:.3f}",
-          enqueue_us_per_dispatch=f"{spent['_dispatch_tracking'] / max(rx.tracking_dispatches, 1) * 1e6:.1f}")
+    _breakdown("hybrid", t0, spent, rx)
     bad = []
     if len(set(tracked[0]) & set(sc_g.prns)) < 3:
         bad.append(f"GPS tracked {tracked[0]}")
@@ -1101,9 +1149,7 @@ def phase_cli_hybrid(device, cap: dict, hyb: dict, check: bool) -> int:
     the RINEX nav file equal to the hybrid phase's ephemeris of that
     satellite (>= 2 per system), the last fix within 2D < 2 m / 3D < 5 m,
     one K2 launch per group dispatch. Returns the CLI's K2 launches."""
-    from gnss_sdr_tpu_torch.receiver.pvt import geodesy
     from gnss_sdr_tpu_torch.receiver.pvt.rinex import (RinexNavReader,
-                                                       RinexNavWriter,
                                                        RinexObsReader)
 
     platform = "cuda" if device.type == "cuda" else "cpu"
@@ -1135,21 +1181,11 @@ def phase_cli_hybrid(device, cap: dict, hyb: dict, check: bool) -> int:
             for o in ep:
                 obs.setdefault(o["system"], set()).add(o["prn"])
         nav = RinexNavReader(tmp / "fix.nav").read()
-        w = RinexNavWriter(tmp / "hybrid.nav")
-        for (sys_, _), e in rx.ephemerides.items():
-            w.write_ephemeris(e, system=sys_)
-        w.close()
-        ref = RinexNavReader(tmp / "hybrid.nav").read()
+        ref = _nav_of(rx, tmp / "hybrid.nav")
         eph_equal = all(k in ref and dataclasses.asdict(nav[k])
                         == dataclasses.asdict(ref[k]) for k in nav)
         per = {s: sum(1 for k in nav if k[0] == s) for s in "GE"}
-        err = {}
-        if "fix_llh" in got:
-            lat, lon, h = got["fix_llh"]
-            pos = geodesy.geodetic_to_ecef(np.deg2rad(lat), np.deg2rad(lon), h)
-            enu = geodesy.ecef_to_enu(pos - sc_g.rcv_ecef, *sc_g.rcv_llh[:2])
-            err = dict(err_2d_m=float(np.hypot(enu[0], enu[1])),
-                       err_3d_m=float(np.linalg.norm(enu)))
+        err = _cli_fix_error(got, sc_g)
         gga = (tmp / "fix.nmea").read_text().count("$GPGGA")
         _line("cli", t0, run="hybrid_conf", cli_seconds=f"{cli_s:.3f}",
               tracked=got["tracked"], group_dispatches=got["dispatches"],
@@ -1178,10 +1214,204 @@ def phase_cli_hybrid(device, cap: dict, hyb: dict, check: bool) -> int:
     return got["k2"]
 
 
+# ------------------------------------------------------------- wideband ---
+# tests/test_e2e_l5.py's and tests/test_e2e_e5a.py's settings: the sample
+# rate, the seed, the ReceiverConfig keywords; and the shipped conf
+WIDE = {
+    "L5": dict(fs=11.0e6, seed=77, conf="gps_l5.conf",
+               rx=dict(n_channels=4, acq_doppler_max_hz=5000.0,
+                       acq_doppler_step_hz=250.0)),
+    "5X": dict(fs=12.0e6, seed=87, conf="galileo_e5a.conf",
+               rx=dict(n_channels=4, acq_doppler_max_hz=5000.0,
+                       acq_doppler_step_hz=125.0, pll_bw_hz=25.0,
+                       dll_bw_hz=2.0)),
+}
+
+
+def wideband_capture(signal: str, device, duration_s: float | None) -> dict:
+    """The scenario of tests/test_e2e_l5.py (30 s, 4 satellites, 50 dB-Hz,
+    11 MSps, seed 77) or tests/test_e2e_e5a.py (4 satellites, 50 dB-Hz,
+    12 MSps, ~47 s: the F/NAV 1-2-3 page set plus 7 s, seed 87), generated
+    with the pilot component (L5Q; E5a-Q with CS100) so the shipped confs'
+    pilot tracking and two-component acquisition have one; the signal sum
+    on ``device`` (the generator's torch path), the noise the numpy draw of
+    the seed. ``duration_s`` cuts the scenario (the CPU rehearsal)."""
+    from gnss_sdr_tpu_torch.utils import scenario
+
+    w = WIDE[signal]
+    if signal == "L5":
+        sc = scenario.build_gps_l5_scenario(duration_s=duration_s or 30.0,
+                                            n_sats=4, cn0_dbhz=50.0,
+                                            fs=w["fs"])
+    else:
+        sc = scenario.build_galileo_e5a_scenario(fs=w["fs"], n_sats=4,
+                                                 cn0_dbhz=50.0)
+        if duration_s:
+            sc.duration_s = duration_s
+    x = sc.generate(seed=w["seed"], with_pilot=True, device=device)
+    return dict(sc=sc, x=x, signal=signal)
+
+
+def phase_wideband(device, cap: dict, check: bool) -> dict:
+    """The in-process GPS L5 or Galileo E5a receiver (4 channels, the JAX
+    e2e test's settings) on its capture: every scenario satellite tracked,
+    >= 4 ephemerides equal to the truth (sqrt_a within 1e-4, toe exact), the
+    mean of the last 5 fixes within 2D < 2 m / 3D < 5 m, one K2 launch per
+    tracking dispatch and no K1 launch; the host seconds of each stage and
+    the real-time factor."""
+    from gnss_sdr_tpu_torch.io.sources import ArraySignalSource
+    from gnss_sdr_tpu_torch.ops import correlator
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    sc, x, signal = cap["sc"], cap["x"], cap["signal"]
+    phase = "l5" if signal == "L5" else "e5a"
+    w = WIDE[signal]
+    t0 = time.perf_counter()
+    cfg = ReceiverConfig(signal=signal, fs=w["fs"], prns=tuple(sc.prns),
+                         chunk_ms=100, pvt_apply_tropo=False,
+                         pvt_apply_iono=False, **w["rx"])
+    rx = Receiver(cfg, device=device)
+    spent: dict = {}
+    _timed(rx, ("_upload", "_run_acquisition", "_dispatch_tracking",
+                "_finish_tracking", "_consume_tracking", "_run_observables"),
+           spent)
+    correlator.launches = 0
+    tk.launches = 0
+    rx.run_source(ArraySignalSource(x, w["fs"]))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    k1, k2 = correlator.launches, tk.launches
+    wall = time.perf_counter() - t0
+    dur = len(x) / w["fs"]
+    tracked = sorted(rx.tracked_prns())
+    g = rx.groups[0]
+    _line(phase, t0, step="receiver", wall_s=f"{wall:.3f}",
+          realtime_x=f"{dur / wall:.3f}", stream_s=f"{dur:.3f}",
+          tracked=tracked, scenario=sorted(sc.prns),
+          steps_per_chunk=g.trk_cfg.n_steps, n_max=g.trk_cfg.n_max,
+          dispatches=rx.tracking_dispatches, scan_steps=rx.scan_steps,
+          k2_launches=k2, k1_launches=k1)
+    _breakdown(phase, t0, spent, rx)
+    bad = []
+    if check and tracked != sorted(sc.prns):
+        bad.append(f"tracked {tracked}")
+    if device.type == "cuda" and not (k2 == rx.tracking_dispatches > 0
+                                      and k1 == 0):
+        bad.append(f"K2 launches {k2} != dispatches "
+                   f"{rx.tracking_dispatches}, or K1 launched {k1} times")
+    if check:
+        ephs = rx.ephemerides
+        wrong = [prn for (_, prn), e in ephs.items()
+                 if abs(e.sqrt_a - sc.ephemerides[prn].sqrt_a) >= 1e-4
+                 or e.toe != sc.ephemerides[prn].toe]
+        err = (_fix_error(rx.fixes[-5:], sc) if len(rx.fixes) >= 3
+               else (np.inf, np.inf))
+        _line(phase, t0, step="checks", ephemerides=len(ephs),
+              eph_mismatch=wrong, fixes=len(rx.fixes),
+              err_2d_m=f"{err[0]:.3f}", err_3d_m=f"{err[1]:.3f}")
+        if len(ephs) < 4 or wrong:
+            bad.append(f"ephemerides {len(ephs)}, wrong {wrong}")
+        if not (err[0] < 2.0 and err[1] < 5.0):
+            bad.append(f"fix error {err}")
+    if bad:
+        raise SystemExit(f"{phase} phase failed its checks: {bad}")
+    return dict(rx=rx, k2_launches=k2, k1_launches=k1, wall_s=wall)
+
+
+def phase_cli_wideband(device, cap: dict, run: dict, check: bool) -> int:
+    """The shipped conf/gps_l5.conf (6 channels, L5Q pilot tracking) or
+    conf/galileo_e5a.conf (5 channels, noncoherent I/Q CAF acquisition
+    over both components) run by the CLI on the wideband capture written as
+    ishort: its capture path and item type replaced, NMEA and RINEX obs /
+    nav output into a temporary directory, PVT.trop_model / iono_model OFF.
+    Exit 0, a device line naming the platform, the scenario's satellites in
+    the RINEX obs file, every nav record equal to the in-process run's
+    ephemeris of that satellite, one K2 launch per dispatch, no K1 launch;
+    for L5 the last fix within 2D < 2 m / 3D < 5 m. Returns the CLI's K2
+    launches."""
+    from gnss_sdr_tpu_torch.receiver.pvt.rinex import (RinexNavReader,
+                                                       RinexObsReader)
+
+    platform = "cuda" if device.type == "cuda" else "cpu"
+    sc, signal, rx = cap["sc"], cap["signal"], run["rx"]
+    w = WIDE[signal]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        _write_ishort(tmp / "capture.ishort", cap["x"])
+        lines = []
+        for ln in (ROOT / "conf" / w["conf"]).read_text().splitlines():
+            if ln.startswith("SignalSource.filename="):
+                ln = f"SignalSource.filename={tmp / 'capture.ishort'}"
+            elif ln.startswith("SignalSource.item_type="):
+                ln = "SignalSource.item_type=ishort"
+            lines.append(ln)
+        lines += [f"PVT.nmea_dump_filename={tmp / 'out.nmea'}",
+                  f"PVT.rinex_obs_filename={tmp / 'out.obs'}",
+                  f"PVT.rinex_nav_filename={tmp / 'out.nav'}",
+                  "PVT.trop_model=OFF", "PVT.iono_model=OFF"]
+        conf = tmp / "wide.conf"
+        conf.write_text("\n".join(lines) + "\n")
+        t1 = time.perf_counter()
+        stdout, stderr = _run_cli(conf, platform)
+        cli_s = time.perf_counter() - t1
+        got = _summary(stdout)
+        obs = sorted({o["prn"] for _, ep in
+                      RinexObsReader(tmp / "out.obs").read_epochs()
+                      for o in ep}) if (tmp / "out.obs").exists() else []
+        nav = (RinexNavReader(tmp / "out.nav").read()
+               if (tmp / "out.nav").exists() else {})
+        ref = _nav_of(rx, tmp / "inproc.nav")
+        eph_equal = all(k in ref and dataclasses.asdict(nav[k])
+                        == dataclasses.asdict(ref[k]) for k in nav)
+        err = _cli_fix_error(got, sc)
+        _line("cli", t0, run=w["conf"].split(".")[0],
+              cli_seconds=f"{cli_s:.3f}", tracked=got["tracked"],
+              tracking_dispatches=got["dispatches"], k2_launches=got["k2"],
+              k1_launches=got["k1"], obs_prns=obs, nav_records=len(nav),
+              nav_equal_inprocess=eph_equal,
+              device_line=f"device: {platform}" in stderr,
+              **{k: f"{v:.3f}" for k, v in err.items()})
+        bad = [name for name, ok in (
+            ("device line", f"device: {platform}" in stderr),
+            ("K1 launches", got["k1"] == 0),
+            ("K2 launches", device.type != "cuda"
+             or got["k2"] == got["dispatches"] > 0),
+            ("RINEX obs", not check or obs == sorted(sc.prns)),
+            ("RINEX nav", not check or (eph_equal and len(nav) >= 4)),
+            ("fix", not check or signal != "L5" or (
+                err and err["err_2d_m"] < 2.0 and err["err_3d_m"] < 5.0)))
+            if not ok]
+        if bad:
+            raise SystemExit(f"{w['conf']} CLI run failed its checks: {bad}")
+    return got["k2"]
+
+
+def run_wideband(device, signal: str, check: bool,
+                 duration_s: float | None = None) -> dict:
+    """One wideband signal: its capture, the in-process phase, K2 on the
+    receiver's final carry (``check``: the card run), the CLI on the
+    shipped conf. Returns the launches and K2's worst reading."""
+    t0 = time.perf_counter()
+    cap = wideband_capture(signal, device, duration_s)
+    phase = "l5" if signal == "L5" else "e5a"
+    _line(phase, t0, step="generate", samples=len(cap["x"]),
+          prns=sorted(cap["sc"].prns), with_pilot=True)
+    run = phase_wideband(device, cap, check)
+    err = None
+    if check:
+        err = phase_k2_case(f"{phase}_final_carry", device,
+                            *_final_carry_case(run["rx"], cap["x"]))
+    cli_k2 = phase_cli_wideband(device, cap, run, check)
+    return dict(k2_launches=run["k2_launches"],
+                k1_launches=run["k1_launches"], cli_k2=cli_k2, k2_err=err)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
-                    help="rehearse phases 3, 4, 6, 8 and 9 on the CPU "
+                    help="rehearse phases 3, 4, 6, 8, 9 and 10 on the CPU "
                          "(plain versions)")
     args = ap.parse_args(argv)
 
@@ -1197,6 +1427,8 @@ def main(argv=None) -> int:
         _line("hybrid", t0, step="generate", samples=len(cap["x"]))
         hyb = phase_hybrid(device, cap, check=False)
         phase_cli_hybrid(device, cap, hyb, check=False)
+        for signal in ("L5", "5X"):
+            run_wideband(device, signal, check=False, duration_s=1.0)
         return 0
 
     t0 = time.perf_counter()
@@ -1239,7 +1471,7 @@ def main(argv=None) -> int:
     del main_run, rx, x
 
     t0 = time.perf_counter()
-    cap = hybrid_capture(26.0)
+    cap = hybrid_capture(26.0, device)
     _line("hybrid", t0, step="generate", samples=len(cap["x"]),
           gps=sorted(cap["sc_g"].prns), gal=sorted(cap["sc_e"].prns))
     hyb = phase_hybrid(device, cap, check=True)
@@ -1248,9 +1480,16 @@ def main(argv=None) -> int:
         k2_err = _worst(k2_err, phase_k2_case(
             name, device, *_final_carry_case(hyb["rx"], cap["x"], group)))
     cli_hyb_k2 = phase_cli_hybrid(device, cap, hyb, check=True)
+    hyb_k1, hyb_k2 = hyb["k1_launches"], hyb["k2_launches"]
+    del cap, hyb
+    wide = {}
+    for signal in ("L5", "5X"):
+        wide[signal] = run_wideband(device, signal, check=True)
+        k2_err = _worst(k2_err, wide[signal]["k2_err"])
 
     a, k2c8 = timing["a_main_path"], timing_k2["k2_c8"]
     e1p = timing_k2["k2_e1p_c6"]
+    l5t, e5at = timing_k2["k2_l5_c4"], timing_k2["k2_e5ap_c4"]
     record = {"kernels": [{
         "name": "epoch_multicorrelator",
         "route": "cuda",
@@ -1258,7 +1497,9 @@ def main(argv=None) -> int:
         "replaces": "gnss_sdr_tpu/ops/correlator_pallas.py:70",
         "launches": k1_own,
         "main_path_launches": k1_main,
-        "hybrid_launches": hyb["k1_launches"],
+        "hybrid_launches": hyb_k1,
+        "l5_launches": wide["L5"]["k1_launches"],
+        "e5a_launches": wide["5X"]["k1_launches"],
         "max_abs_err": k1_err,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
@@ -1270,7 +1511,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "gnss_sdr_tpu_torch/csrc/tracking.cu",
         "replaces": "gnss_sdr_tpu/receiver/tracking.py:432",
-        "launches": hyb["k2_launches"],
+        "launches": hyb_k2,
         "gps_main_launches": k2_main,
         "cli_launches": cli_k2,
         "cli_hybrid_launches": cli_hyb_k2,
@@ -1285,6 +1526,18 @@ def main(argv=None) -> int:
         "e1_pilot_plain_ms": e1p["plain_ms"],
         "e1_pilot_bound_ms": e1p["bound_ms"],
         "e1_pilot_bound_by": e1p["bound_by"],
+        "l5_launches": wide["L5"]["k2_launches"],
+        "cli_l5_launches": wide["L5"]["cli_k2"],
+        "l5_ms": l5t["ms"],
+        "l5_plain_ms": l5t["plain_ms"],
+        "l5_bound_ms": l5t["bound_ms"],
+        "l5_bound_by": l5t["bound_by"],
+        "e5a_launches": wide["5X"]["k2_launches"],
+        "cli_e5a_launches": wide["5X"]["cli_k2"],
+        "e5a_pilot_ms": e5at["ms"],
+        "e5a_pilot_plain_ms": e5at["plain_ms"],
+        "e5a_pilot_bound_ms": e5at["bound_ms"],
+        "e5a_pilot_bound_by": e5at["bound_by"],
         "library_ms": None,
     }]}
     print(json.dumps(record))

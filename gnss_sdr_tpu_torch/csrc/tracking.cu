@@ -64,9 +64,9 @@
 //     library functions (hypotf, atanf, log10f, sinf, cosf) are built with
 //     nvcc's default flags, as PyTorch's own kernels are (never
 //     --use_fast_math, never -fmad=false, which would change them);
-//   - the four fused sums of the eager step (fma32: fll_freq,
-//     new_code_freq, tot, new_rem) are a float64 product plus a float64 sum
-//     rounded once to float32, as fma32 computes them;
+//   - the fused sums of the eager step (fma32: fll_freq, new_code_freq,
+//     tot, new_rem and the C/N0 moments) are a float64 product plus a
+//     float64 sum rounded once to float32, as fma32 computes them;
 //   - IEEE division: n_samp = ceil((code_len - rem) / safe_cps);
 //   - a tensor divided by a Python scalar is, in PyTorch's CUDA division, a
 //     multiply by the scalar's reciprocal taken in float64 and rounded to
@@ -257,14 +257,14 @@ __device__ void update_epoch(Carry& c, const TrackParams& p,
 
   // ---- C/N0 and lock detectors ----
   const float a = p.cn0_alpha;
-  const float ii = __fmul_rn(pr, pr), qq = __fmul_rn(pq, pq);
-  const float p2 = __fadd_rn(ii, qq);
+  const float qq = __fmul_rn(pq, pq);
+  const float p2 = fma32(pr, pr, qq);
   float e_abs_i = c.e_abs_i, e_p2 = c.e_p2, e_mq = c.e_mq, e_pq = c.e_pq;
   if (boundary) {
-    e_abs_i = __fadd_rn(e_abs_i, __fmul_rn(__fsub_rn(fabsf(pr), e_abs_i), a));
-    e_p2 = __fadd_rn(e_p2, __fmul_rn(__fsub_rn(p2, e_p2), a));
-    e_mq = __fadd_rn(e_mq, __fmul_rn(__fsub_rn(__fsub_rn(ii, qq), e_mq), a));
-    e_pq = __fadd_rn(e_pq, __fmul_rn(__fsub_rn(p2, e_pq), a));
+    e_abs_i = fma32(a, __fsub_rn(fabsf(pr), e_abs_i), e_abs_i);
+    e_p2 = fma32(a, __fsub_rn(p2, e_p2), e_p2);
+    e_mq = fma32(a, __fsub_rn(fma32(pr, pr, -qq), e_mq), e_mq);
+    e_pq = fma32(a, __fsub_rn(p2, e_pq), e_pq);
   }
   const float dt_cn0 = __fmul_rn((float)c.ext_n, dt);
   const float pd = __fmul_rn(e_abs_i, e_abs_i);

@@ -1,13 +1,14 @@
 """PRN spreading-code generators for the ported signals: GPS L1 C/A (and
-the SBAS L1 codes of the same Gold family) and Galileo E1-B / E1-C with the
-E1-C secondary code CS25.
+the SBAS L1 codes of the same Gold family), GPS L5 I / Q, Galileo E1-B /
+E1-C with the E1-C secondary code CS25, and Galileo E5a-I / E5a-Q with the
+E5a-Q secondary codes CS100.
 
 Host-side (numpy): codes are generated once per channel assignment and shipped
 to the device as float32 tables; the hot path never regenerates them. The
-Galileo E1 memory codes come from the port's own copy of their ICD hex dumps
-(``gnss_sdr_tpu_torch/data/icd_tables_e1.json``). The other signals'
-generators (and their ICD seed tables) are ported with the slices that track
-those signals.
+Galileo memory codes and the L5 XB advances come from the port's own copies
+of their ICD tables (``gnss_sdr_tpu_torch/data/icd_tables_{e1,e5a,l5}.json``).
+The other signals' generators (and their ICD seed tables) are ported with the
+slices that track those signals.
 
 All generators return chips mapped to +/-1.0 float32 with the convention
 chip = 1 - 2*bit (bit 0 -> +1.0).
@@ -21,13 +22,15 @@ import pathlib
 
 import numpy as np
 
-_DATA = (pathlib.Path(__file__).resolve().parent.parent / "data"
-         / "icd_tables_e1.json")
+_DATA = pathlib.Path(__file__).resolve().parent.parent / "data"
 
 
 @functools.lru_cache(maxsize=1)
 def _tables() -> dict:
-    return json.loads(_DATA.read_text())
+    out = {}
+    for part in ("e1", "e5a", "l5"):
+        out.update(json.loads((_DATA / f"icd_tables_{part}.json").read_text()))
+    return out
 
 
 def _lfsr(n_stages: int, feedback_taps: tuple[int, ...], out_tap: int,
@@ -100,6 +103,56 @@ def gps_l1ca_code(prn: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# GPS L5 I/Q  (IS-GPS-705: XA x XB(advance) 13-stage registers)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=4)
+def _l5_xa() -> np.ndarray:
+    """XA sequence: 13-stage, taps 9,10,12,13, short-cycled at 8190 chips."""
+    n = 10230
+    reg = np.ones(13, dtype=np.uint8)
+    out = np.empty(n, dtype=np.uint8)
+    for i in range(n):
+        out[i] = reg[12]
+        # natural sequence restart: XA resets to all-ones at state 1111111111101
+        if np.array_equal(reg, np.array([1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 1], dtype=np.uint8)):
+            reg = np.ones(13, dtype=np.uint8)
+            continue
+        fb = reg[8] ^ reg[9] ^ reg[11] ^ reg[12]
+        reg[1:] = reg[:-1]
+        reg[0] = fb
+    return out
+
+
+@functools.lru_cache(maxsize=4)
+def _l5_xb() -> np.ndarray:
+    """XB sequence: 13-stage, taps 1,3,4,6,7,8,12,13, free-running."""
+    reg = np.ones(13, dtype=np.uint8)
+    n = 10230
+    out = np.empty(n, dtype=np.uint8)
+    for i in range(n):
+        out[i] = reg[12]
+        fb = reg[0] ^ reg[2] ^ reg[3] ^ reg[5] ^ reg[6] ^ reg[7] ^ reg[11] ^ reg[12]
+        reg[1:] = reg[:-1]
+        reg[0] = fb
+    return out
+
+
+def gps_l5i_code(prn: int) -> np.ndarray:
+    """10230-chip GPS L5I code, +/-1 float32 (IS-GPS-705 Table 3-I)."""
+    adv = _tables()["gps_l5i_xb_advance"][prn - 1]
+    bits = _l5_xa() ^ np.roll(_l5_xb(), -adv)
+    return _bits_to_chips(bits)
+
+
+def gps_l5q_code(prn: int) -> np.ndarray:
+    adv = _tables()["gps_l5q_xb_advance"][prn - 1]
+    bits = _l5_xa() ^ np.roll(_l5_xb(), -adv)
+    return _bits_to_chips(bits)
+
+
+# ---------------------------------------------------------------------------
 # Galileo E1-B / E1-C  (OS SIS ICD Annex C memory codes, hex dumps)
 # ---------------------------------------------------------------------------
 
@@ -128,12 +181,35 @@ def galileo_e1c_secondary_code() -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# Galileo E5a I/Q  (OS SIS ICD Annex C memory codes)
+# ---------------------------------------------------------------------------
+
+
+def galileo_e5ai_code(prn: int) -> np.ndarray:
+    """10230-chip E5a-I primary code, +/-1 float32."""
+    return _bits_to_chips(_hex_to_bits(_tables()["galileo_e5a_i_primary_hex"][prn - 1], 10230))
+
+
+def galileo_e5aq_code(prn: int) -> np.ndarray:
+    return _bits_to_chips(_hex_to_bits(_tables()["galileo_e5a_q_primary_hex"][prn - 1], 10230))
+
+
+def galileo_e5aq_secondary_code(prn: int) -> np.ndarray:
+    """CS100 secondary code on the E5a-Q pilot (100 chips)."""
+    table = _tables()["galileo_e5a_q_secondary"]
+    bits = np.array([int(b) for b in table[prn - 1]], dtype=np.uint8)
+    return _bits_to_chips(bits)
+
+
+# ---------------------------------------------------------------------------
 # Dispatch by signal code + sampling helpers
 # ---------------------------------------------------------------------------
 
 _GENERATORS = {
     "1C": lambda prn: gps_l1ca_code(prn),
+    "L5": lambda prn: gps_l5i_code(prn),
     "1B": lambda prn: galileo_e1b_code(prn),
+    "5X": lambda prn: galileo_e5ai_code(prn),
 }
 
 
@@ -148,9 +224,11 @@ def code_chips(signal: str, prn: int) -> np.ndarray:
 
 
 # pilot components tracked by the reference's track_pilot option
-# (dll_pll_veml_tracking: E1 -> E1-C; E5a-Q and L5Q come with those signals)
+# (dll_pll_veml_tracking: E1 -> E1-C, E5a -> E5a-Q, L5 -> L5Q)
 _PILOT_GENERATORS = {
     "1B": lambda prn: galileo_e1c_code(prn),
+    "5X": lambda prn: galileo_e5aq_code(prn),
+    "L5": lambda prn: gps_l5q_code(prn),
 }
 
 
@@ -167,6 +245,8 @@ def pilot_secondary_chips(signal: str, prn: int) -> np.ndarray | None:
     """Pilot secondary code (one chip per primary period), None if absent."""
     if signal == "1B":
         return galileo_e1c_secondary_code()
+    if signal == "5X":
+        return galileo_e5aq_secondary_code(prn)
     return None
 
 

@@ -1,7 +1,9 @@
 """Batched PCPS (parallel code-phase search) acquisition.
 
 Port of the JAX package's ``pcps_search`` / ``pcps_search_grids`` /
-``fine_doppler_search`` (gnss_sdr_tpu/ops/acquisition.py:64-230): the whole
+``fine_doppler_search`` (gnss_sdr_tpu/ops/acquisition.py:64-230) and of its
+Galileo E5a ``noncoherent_iq_caf_search`` with ``caf_triangular_smooth``
+(:409-520): the whole
 [signal x doppler x code-phase] grid of the reference's
 ``pcps_acquisition.cc:633 acquisition_core`` as batched FFTs, with signals and
 Doppler bins on the batch axes. The JAX package scans over signals to bound
@@ -71,33 +73,45 @@ def _carriers(dopplers: torch.Tensor, n_fft: int, fs: float) -> torch.Tensor:
     return torch.complex(torch.cos(ang), torch.sin(ang))
 
 
-def _magnitudes(xf: torch.Tensor, cfc: torch.Tensor, n_fft: int) -> torch.Tensor:
-    """|IFFT(X * conj(C))|^2 summed over dwells, FFTW-normalised:
-    xf [S or 1, B, D, N], cfc [S, N] -> [S, D, N]."""
+def _power(xf: torch.Tensor, cfc: torch.Tensor) -> torch.Tensor:
+    """|IFFT(X * conj(C))|^2 summed over dwells: xf [S or 1, B, D, N],
+    cfc [S, N] -> [S, D, N]."""
     corr = fft_ops.ifft(xf * cfc[:, None, None, :])
-    return (torch.abs(corr) ** 2).sum(dim=1) * float(np.float32(n_fft * n_fft))
+    return (torch.abs(corr) ** 2).sum(dim=1)
 
 
-def _peaks(mag: torch.Tensor, samples_per_code: int, samples_per_chip: int):
-    """Peak and CFAR second peak of each [D, N] grid in ``mag`` [S, D, N].
+def _magnitudes(xf: torch.Tensor, cfc: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """:func:`_power`, FFTW-normalised."""
+    return _power(xf, cfc) * float(np.float32(n_fft * n_fft))
 
-    The peak is the first index of the maximum (as ``jnp.argmax``); the
-    second peak is the largest cell of the peak's Doppler row at least
-    ``samples_per_chip`` samples away in circular code-phase distance."""
-    mag_cp = mag[..., :samples_per_code]
-    n_sig = mag_cp.shape[0]
-    flat = mag_cp.reshape(n_sig, -1)
-    flat_idx = torch.argmax(flat, dim=1)
-    d_idx = torch.div(flat_idx, samples_per_code, rounding_mode="floor")
-    t_idx = flat_idx - d_idx * samples_per_code
-    peak = torch.gather(flat, 1, flat_idx[:, None])[:, 0]
-    row = mag_cp[torch.arange(n_sig, device=mag.device), d_idx]   # [S, spc]
-    pos = torch.arange(samples_per_code, device=mag.device)
+
+def _row_peak(mag_cp: torch.Tensor, d_idx: torch.Tensor,
+              samples_per_chip: int):
+    """Peak, its code phase and the CFAR second peak of Doppler row
+    ``d_idx`` of each [D, spc] grid in ``mag_cp`` [S, D, spc]: the peak is
+    the row's first maximum (as ``jnp.argmax``), the second peak the row's
+    largest cell at least ``samples_per_chip`` samples away in circular
+    code-phase distance."""
+    spc = mag_cp.shape[-1]
+    row = mag_cp[torch.arange(mag_cp.shape[0], device=mag_cp.device), d_idx]
+    t_idx = torch.argmax(row, dim=1)
+    peak = torch.gather(row, 1, t_idx[:, None])[:, 0]
+    pos = torch.arange(spc, device=mag_cp.device)
     dist = torch.abs(pos[None, :] - t_idx[:, None])
-    dist = torch.minimum(dist, samples_per_code - dist)
+    dist = torch.minimum(dist, spc - dist)
     second = torch.where(dist >= samples_per_chip, row,
                          torch.zeros((), dtype=row.dtype, device=row.device)
                          ).amax(dim=1)
+    return peak, t_idx, second
+
+
+def _peaks(mag: torch.Tensor, samples_per_code: int, samples_per_chip: int):
+    """Peak and CFAR second peak of each [D, N] grid in ``mag`` [S, D, N],
+    in the Doppler row of the grid's first maximum (:func:`_row_peak`)."""
+    mag_cp = mag[..., :samples_per_code]
+    flat_idx = torch.argmax(mag_cp.reshape(mag_cp.shape[0], -1), dim=1)
+    d_idx = torch.div(flat_idx, samples_per_code, rounding_mode="floor")
+    peak, t_idx, second = _row_peak(mag_cp, d_idx, samples_per_chip)
     return peak, d_idx, t_idx, second
 
 
@@ -106,8 +120,11 @@ def _signal_block(n_dwell: int, n_dop: int, n_fft: int) -> int:
 
 
 def _result(peaks, t_idxs, seconds, dops_pk, xb, noncoherent: int,
-            n_fft: int) -> AcqGridResult:
+            n_fft: int, components: int = 1) -> AcqGridResult:
     input_power = torch.mean(torch.abs(xb) ** 2) * float(noncoherent)
+    if components > 1:
+        # the input power counts every combined component
+        input_power = input_power * float(components)
     nrm = float(np.float32(n_fft) ** 4)
     return AcqGridResult(
         test_max_power=(peaks / nrm / input_power).to(torch.float32),
@@ -184,6 +201,88 @@ def pcps_search_grids(x: torch.Tensor, code_fft_conj: torch.Tensor,
         parts.append((peak, t_idx, second, dop_pk))
     peaks, t_idxs, seconds, dops_pk = (torch.cat(p) for p in zip(*parts))
     return _result(peaks, t_idxs, seconds, dops_pk, xb, noncoherent, n_fft)
+
+
+def caf_triangular_smooth(v: torch.Tensor, caf_bins_half: int) -> torch.Tensor:
+    """Triangular-weighted Doppler smoothing of per-bin peak magnitudes.
+
+    The reference's CAF filter (galileo_e5a_noncoherent_iq_acquisition_caf_
+    cc.cc:611-697): each Doppler bin is replaced by the average of its
+    +-caf_bins_half neighbours under weights w(k) = 1 - |k| / (2 * H),
+    normalized by the weight mass actually inside the vector. Secondary-code
+    sign flips split the E5a correlation peak into Doppler sidelobes; the
+    smoothing re-centres the maximum on the true Doppler.
+
+    Args:
+      v: [..., D] per-Doppler peak magnitudes.
+      caf_bins_half: H (CAF_window_hz / (2 * doppler_step) in the reference).
+    """
+    if caf_bins_half <= 0:
+        return v
+    h = int(caf_bins_half)
+    wf = 0.5 / float(h)
+    w = torch.from_numpy(
+        (1.0 - wf * np.abs(np.arange(-h, h + 1))).astype(np.float32)
+    ).to(v.device)                                            # [2H+1]
+    d = v.shape[-1]
+    # the window around each bin; out-of-range neighbours get weight 0
+    idx = (torch.arange(d, device=v.device)[:, None]
+           + torch.arange(-h, h + 1, device=v.device)[None, :])   # [D, 2H+1]
+    inside = (idx >= 0) & (idx < d)
+    vals = v[..., torch.clamp(idx, 0, d - 1)]               # [..., D, 2H+1]
+    wm = w[None, :] * inside.to(torch.float32)
+    return torch.sum(vals * wm, dim=-1) / torch.sum(wm, dim=-1)
+
+
+def noncoherent_iq_caf_search(x: torch.Tensor, code_fft_conj_data: torch.Tensor,
+                              code_fft_conj_pilot: torch.Tensor,
+                              dopplers: torch.Tensor, *, fs: float,
+                              samples_per_code: int, samples_per_chip: int,
+                              noncoherent: int = 1, caf_bins_half: int = 0,
+                              both_components: bool = True,
+                              stride: int | None = None) -> AcqGridResult:
+    """Galileo E5a noncoherent I/Q acquisition with optional CAF filtering
+    (galileo_e5a_noncoherent_iq_acquisition_caf_cc).
+
+    The E5a-I (data) and E5a-Q (pilot) components are correlated separately
+    and combined NONcoherently per grid cell (``both_components``); with
+    ``caf_bins_half > 0`` the per-Doppler peak magnitudes are triangularly
+    smoothed over Doppler and the Doppler is re-selected from the smoothed
+    vector, resolving the ambiguity the secondary-code sign transitions
+    create. Code phase, peak and second peak come from the selected Doppler
+    row of the combined grid.
+
+    Shapes as :func:`pcps_search`, one code-FFT stack per component.
+    """
+    xc = iq.as_complex(x)
+    cd = iq.as_complex(code_fft_conj_data)
+    cp = iq.as_complex(code_fft_conj_pilot)
+    n_fft = cd.shape[-1]
+    xb = _dwell_windows(xc, n_fft, noncoherent, stride)
+    xf = fft_ops.fft(xb[:, None, :] * _carriers(dopplers, n_fft, fs)[None])
+    block = _signal_block(xb.shape[0], dopplers.shape[0], n_fft)
+    nrm2 = float(np.float32(n_fft * n_fft))
+    parts = []
+    for s0 in range(0, cd.shape[0], block):
+        mag = _power(xf[None], cd[s0: s0 + block])
+        if both_components:
+            mag = mag + _power(xf[None], cp[s0: s0 + block])
+        mag = mag * nrm2
+        if caf_bins_half > 0:
+            caf = mag[..., :samples_per_code].amax(dim=2)            # [s, D]
+            d_sel = torch.argmax(caf_triangular_smooth(caf, caf_bins_half),
+                                 dim=1)
+            # code phase / peak / second peak all from the SELECTED row, so
+            # the reported triple stays consistent when smoothing moves it
+            peak, t_idx, second = _row_peak(mag[..., :samples_per_code],
+                                            d_sel, samples_per_chip)
+        else:
+            peak, d_sel, t_idx, second = _peaks(mag, samples_per_code,
+                                                samples_per_chip)
+        parts.append((peak, t_idx, second, dopplers[d_sel]))
+    peaks, t_idxs, seconds, dops_pk = (torch.cat(p) for p in zip(*parts))
+    return _result(peaks, t_idxs, seconds, dops_pk, xb, noncoherent, n_fft,
+                   components=2 if both_components else 1)
 
 
 def fine_doppler_search(x: torch.Tensor, code_replica: torch.Tensor,

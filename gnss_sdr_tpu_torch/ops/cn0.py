@@ -13,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gnss_sdr_tpu_torch.ops.correlator import fma32
+
 _EPS = float(np.float32(1e-12))
 
 
@@ -25,19 +27,25 @@ class Cn0State(NamedTuple):
 
 def cn0_update(state: Cn0State, prompt: torch.Tensor, valid: torch.Tensor,
                alpha: float = 0.05) -> Cn0State:
-    """Update smoothed moments with the latest prompt correlator output."""
-    a = float(np.float32(alpha))
+    """Update smoothed moments with the latest prompt correlator output.
+
+    The JAX reference's CPU backend contracts ``i*i + q*q``, ``i*i - q*q``
+    and ``old + a*(new - old)`` into FMAs (i*i fused, q*q rounded first);
+    the port writes those roundings out, so on the same prompts the moments
+    keep the reference's bits."""
     i = prompt.real
     q = prompt.imag
-    p2 = i * i + q * q
+    qq = q * q
+    p2 = fma32(i, i, qq)
+    a = torch.full_like(p2, float(np.float32(alpha)))
 
     def upd(old, new):
-        return torch.where(valid, old + a * (new - old), old)
+        return torch.where(valid, fma32(a, new - old, old), old)
 
     return Cn0State(
         ema_abs_i=upd(state.ema_abs_i, torch.abs(i)),
         ema_p2=upd(state.ema_p2, p2),
-        ema_i2_minus_q2=upd(state.ema_i2_minus_q2, i * i - q * q),
+        ema_i2_minus_q2=upd(state.ema_i2_minus_q2, fma32(i, i, -qq)),
         ema_i2_plus_q2=upd(state.ema_i2_plus_q2, p2),
     )
 

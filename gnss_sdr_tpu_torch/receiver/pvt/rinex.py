@@ -3,7 +3,9 @@
 Port of gnss_sdr_tpu/receiver/pvt/rinex.py (reference analog:
 ``Rinex_Printer``, ``src/algorithms/PVT/libs/rinex_printer.cc``): the same
 text, byte for byte, for what this port's receiver produces — observables
-(C/L/D/S) of any signal, GPS LNAV and Galileo I/NAV ephemerides. The
+(C/L/D/S) of any signal, GPS LNAV / CNAV and Galileo I/NAV / F/NAV
+ephemerides (one Kepler record layout per system; the Galileo record's
+data-source word is the JAX package's, 513, for both). The
 navigation records of other systems (BeiDou, GLONASS, SBAS) raise
 ``NotImplementedError`` until their signals are ported.
 """

@@ -9,10 +9,13 @@ advances chunk by chunk; per chunk it runs
 The channel manager mirrors the reference's state machine (idle -> tracking,
 reacquire on loss; gnss_flowgraph.cc:1203-1366).
 
-This port covers the GPS L1 C/A and Galileo E1-B receivers, alone or as
-signal groups of one hybrid receiver (``signal_plan``, ``group_params``:
-each group runs its own tracking loop on the shared stream, BOC(1,1) VEML
-tracking and E1-C pilot tracking for Galileo), with the control plane
+This port covers the GPS L1 C/A, GPS L5I, Galileo E1-B and Galileo E5a-I
+receivers, alone or as signal groups of one hybrid receiver
+(``signal_plan``, ``group_params``: each group runs its own tracking loop
+on the shared stream; BOC(1,1) VEML tracking and E1-C pilot tracking for
+Galileo E1; L5Q / E5a-Q pilot tracking and the NH10 / CS20 wipe after
+symbol sync for the wideband signals; E5a's noncoherent I/Q CAF
+acquisition), with the control plane
 (telecommands, assistance, output sinks) and the rate conditioner of
 ``run_file_source``. Every ``ReceiverConfig`` field of the JAX package
 exists here; a field that selects a feature not yet ported raises
@@ -112,7 +115,10 @@ class ReceiverConfig:
 
 
 # the signals whose codes, tracking and telemetry are ported
-PORTED_SIGNALS = ("1C", "1B")
+PORTED_SIGNALS = ("1C", "1B", "L5", "5X")
+# the acquisition engines ported: PCPS, and Galileo E5a's noncoherent I/Q
+# search with CAF Doppler smoothing
+PORTED_ACQ_VARIANTS = ("pcps", "e5a_caf")
 
 
 def _check_ported(cfg: ReceiverConfig) -> None:
@@ -124,7 +130,7 @@ def _check_ported(cfg: ReceiverConfig) -> None:
         "n_mesh_devices": bool(cfg.n_mesh_devices and cfg.n_mesh_devices > 1),
         "tcp_connector": cfg.tcp_connector,
         "carrier_kf": cfg.carrier_kf,
-        "acq_variant": cfg.acq_variant != "pcps",
+        "acq_variant": cfg.acq_variant not in PORTED_ACQ_VARIANTS,
         "dump_dir": cfg.dump_dir is not None,
     }
     for field, bad in unported.items():
@@ -270,6 +276,7 @@ class SignalGroup:
                                or self.spec.bit_period_ms * 1e-3
                                <= self.spec.code_period_s + 1e-9)
         self.acq_reps: dict[int, np.ndarray] = {}
+        self.acq_reps2: dict[int, tuple] = {}   # e5a_caf replica pairs
         self.acq_pool = list(prns)
         self.acq_backoff: dict[int, int] = {}
         # consecutive failed dwells per PRN: retry intervals grow
@@ -375,28 +382,45 @@ class Receiver:
     # ------------------------------------------------------------------ acq
     def _acq_window(self, g: SignalGroup) -> tuple[int, int]:
         """(fft_window, dwell_stride): the natural window (1 or 2 code
-        periods) when its length is friendly (ops/fft._split factors <= 512),
-        else the next friendly length that keeps every lag in [0, spc)
-        wrap-free — the JAX package's rule, so both search the same windows."""
+        periods; one for the E5a CAF search) when its length is friendly
+        (ops/fft._split factors <= 512), else the next friendly length that
+        keeps every lag in [0, spc) wrap-free — the JAX package's rule, so
+        both search the same windows."""
         spc = g.spc
-        base = 2 * spc if g.acq_double else spc
+        if g.rx_cfg.acq_variant == "e5a_caf":
+            base = spc
+        else:
+            base = 2 * spc if g.acq_double else spc
         if fft_ops.is_friendly(base):
             return base, base
         return fft_ops.friendly_len(spc + spc), base
 
+    def _spectrum(self, g: SignalGroup, chips: np.ndarray) -> np.ndarray:
+        """split conj(FFT(one code period's replica of ``chips``)),
+        zero-padded to the FFT window."""
+        rep = codes.sample_code(chips, self.cfg.fs, g.spec.code_rate_cps,
+                                g.spc, boc_rate=g.spec.subcarrier_rate_hz)
+        window, _ = self._acq_window(g)
+        if window > len(rep):
+            rep = np.concatenate([rep, np.zeros(window - len(rep), rep.dtype)])
+        return iq.split(np.conj(np.fft.fft(rep)))
+
     def _code_fft(self, g: SignalGroup, prn: int) -> np.ndarray:
-        """split conj(FFT(code replica)), zero-padded to the FFT window."""
+        """The PCPS replica spectrum of ``prn``."""
         if prn not in g.acq_reps:
-            boc = g.spec.subcarrier_rate_hz
-            rep = codes.sample_code(
-                codes.code_chips(g.signal, prn), self.cfg.fs,
-                g.spec.code_rate_cps, g.spc, boc_rate=boc)
-            window, _ = self._acq_window(g)
-            if window > len(rep):
-                rep = np.concatenate(
-                    [rep, np.zeros(window - len(rep), rep.dtype)])
-            g.acq_reps[prn] = iq.split(np.conj(np.fft.fft(rep)))
+            g.acq_reps[prn] = self._spectrum(g, codes.code_chips(g.signal,
+                                                                 prn))
         return g.acq_reps[prn]
+
+    def _code_fft_pair(self, g: SignalGroup, prn: int) -> tuple:
+        """The e5a_caf search's replica spectra: separate data (E5a-I) and
+        pilot (E5a-Q) single-period replicas
+        (galileo_e5a_noncoherent_iq_acquisition_caf_cc)."""
+        if prn not in g.acq_reps2:
+            g.acq_reps2[prn] = (
+                self._spectrum(g, codes.code_chips(g.signal, prn)),
+                self._spectrum(g, codes.pilot_code_chips(g.signal, prn)))
+        return g.acq_reps2[prn]
 
     def _refine_doppler(self, g: SignalGroup, chunk: np.ndarray, prn: int,
                         delay: int, doppler: float) -> float:
@@ -537,26 +561,23 @@ class Receiver:
             g.rx_cfg.acq_doppler_max_hz, g.rx_cfg.acq_doppler_step_hz)
         # CFAR exclusion half-width: CEIL of samples/chip (receiver.py:743-750)
         spchip = max(1, int(np.ceil(self.cfg.fs / g.spec.code_rate_cps)))
-        cf = torch.from_numpy(
-            np.stack([self._code_fft(g, p) for p in candidates])).to(dev)
-        predicted = self._predicted_dopplers(g, candidates)
-        if predicted is not None:
-            # assisted warm start: per-candidate narrow grids around the
-            # predicted Doppler, batched into one call
-            grids = np.stack([
-                acq_ops.make_doppler_grid(
-                    g.rx_cfg.acq_assisted_doppler_max_hz,
-                    g.rx_cfg.acq_doppler_step_hz, doppler_center=fd)
-                for fd in predicted])
-            res = acq_ops.pcps_search_grids(
-                head_dev, cf, torch.from_numpy(grids).to(dev),
+        if g.rx_cfg.acq_variant == "e5a_caf":
+            # data + pilot noncoherently, CAF Doppler re-selection; the
+            # unassisted grid, as the JAX package runs it
+            pairs = [self._code_fft_pair(g, p) for p in candidates]
+            cfa, cfb = (torch.from_numpy(np.stack(c)).to(dev)
+                        for c in zip(*pairs))
+            caf_half = int(round(g.rx_cfg.acq_caf_window_hz
+                                 / (2.0 * g.rx_cfg.acq_doppler_step_hz)))
+            res = acq_ops.noncoherent_iq_caf_search(
+                head_dev, cfa, cfb, torch.from_numpy(dopplers).to(dev),
                 fs=self.cfg.fs, samples_per_code=g.spc,
-                samples_per_chip=spchip, noncoherent=nc, stride=stride)
+                samples_per_chip=spchip, noncoherent=nc,
+                caf_bins_half=caf_half,
+                both_components=g.rx_cfg.acq_both_components, stride=stride)
         else:
-            res = acq_ops.pcps_search(
-                head_dev, cf, torch.from_numpy(dopplers).to(dev),
-                fs=self.cfg.fs, samples_per_code=g.spc,
-                samples_per_chip=spchip, noncoherent=nc, stride=stride)
+            res = self._pcps(g, candidates, head_dev, dopplers, spchip, nc,
+                             stride)
         cfar = res.test_cfar.cpu().numpy()
         code_phases = [int(v) for v in res.code_phase.cpu().numpy()]
         doppler_hz = [float(v) for v in res.doppler_hz.cpu().numpy()]
@@ -584,6 +605,30 @@ class Receiver:
                 continue
             idle.remove(pick)
             self._assign_channel(g, pick, prn, delay, doppler)
+
+    def _pcps(self, g: SignalGroup, candidates: list, head_dev, dopplers,
+              spchip: int, nc: int, stride):
+        """PCPS over the candidates: per-candidate narrow grids around the
+        predicted Dopplers on an assisted warm start (batched into one
+        call), else the full grid."""
+        dev = self.device
+        cf = torch.from_numpy(
+            np.stack([self._code_fft(g, p) for p in candidates])).to(dev)
+        predicted = self._predicted_dopplers(g, candidates)
+        if predicted is not None:
+            grids = np.stack([
+                acq_ops.make_doppler_grid(
+                    g.rx_cfg.acq_assisted_doppler_max_hz,
+                    g.rx_cfg.acq_doppler_step_hz, doppler_center=fd)
+                for fd in predicted])
+            return acq_ops.pcps_search_grids(
+                head_dev, cf, torch.from_numpy(grids).to(dev),
+                fs=self.cfg.fs, samples_per_code=g.spc,
+                samples_per_chip=spchip, noncoherent=nc, stride=stride)
+        return acq_ops.pcps_search(
+            head_dev, cf, torch.from_numpy(dopplers).to(dev),
+            fs=self.cfg.fs, samples_per_code=g.spc,
+            samples_per_chip=spchip, noncoherent=nc, stride=stride)
 
     def acq_fails_for(self, g: SignalGroup, prn: int) -> int:
         """Count of consecutive failed dwells for this PRN (post-increment:

@@ -30,6 +30,39 @@ class TowReference:
     polarity: int         # +1/-1 data polarity
 
 
+def _overlay_phase_sync(p: np.ndarray, e0: int, seq_pm: np.ndarray,
+                        skip: int = 100, min_blocks: int = 8,
+                        margin: float = 1.5) -> int | None:
+    """Estimate the secondary-code (NH/CS overlay) phase of a 1 ms prompt
+    stream, robustly:
+
+    - the first ``skip`` prompts are excluded (the FLL pull-in transient
+      flips prompt signs and can push the correlation onto an overlay
+      autocorrelation sidelobe — observed as an exactly-8-epoch transmit
+      time bias on a re-acquired E5a channel);
+    - the winning phase must beat the runner-up by ``margin`` (clean-signal
+      main-to-sidelobe ratio is 5:1 for NH10/NH20/CS20), else return None
+      and let the caller retry when more prompts have accumulated.
+    """
+    n = len(seq_pm)
+    if len(p) <= skip + (min_blocks + 1) * n:
+        return None
+    p = p[skip:]
+    e0 = e0 + skip
+    mags = np.full(n, -1.0)
+    for phase in range(n):
+        off = (phase - e0) % n
+        n_b = (len(p) - off) // n
+        if n_b < min_blocks:
+            continue
+        seg = p[off: off + n_b * n].reshape(n_b, n)
+        mags[phase] = float(np.abs(seg @ seq_pm).sum() / n_b)
+    order = np.argsort(-mags)
+    if mags[order[0]] <= 0 or mags[order[1]] * margin > mags[order[0]]:
+        return None
+    return int(order[0])
+
+
 class GpsL1CaTelemetry:
     """GPS L1 C/A LNAV telemetry decoder for one channel.
 
@@ -255,13 +288,246 @@ class GalileoE1BTelemetry:
         return self.assembler.ephemeris()
 
 
+class GpsL5ITelemetry:
+    """GPS L5I CNAV telemetry: 1 ms primary-code epochs carry
+    symbol * NH10[epoch phase]; the 10-bit Neuman-Hofman overlay gives 10 ms
+    symbol sync, then 100 sps symbols feed the continuous K=7 r=1/2 FEC and
+    CRC-24Q CNAV framing shared with L2C (models/nav/gps_cnav).
+
+    Reference analog: gps_l5_telemetry_decoder_gs.cc:1-280 (NH sync + the
+    libswiftcnav cnav_msg_decoder) — message period 6 s at 50 bps.
+    """
+
+    NH_EPOCHS = 10
+    MSG_SYMBOLS = 600               # 300 bits * 2 symbols at r=1/2
+    MSG_PERIOD_S = 6.0
+
+    def __init__(self, prn: int):
+        from gnss_sdr_tpu_torch import constants
+        from gnss_sdr_tpu_torch.models.nav import fec, gps_cnav
+        self._fec = fec
+        self._cnav = gps_cnav
+        nh = constants.GPS_L5_I.secondary_code
+        self.NH10 = np.array([int(b) for b in nh], np.uint8)
+        self.prn = prn
+        self._epochs = np.zeros(0, np.int64)
+        self._prompts = np.zeros(0, np.float64)
+        self.assembler = gps_cnav.CnavAssembler(prn)
+        self.bit_phase: int | None = None        # epoch phase of symbol start
+        self.tow_ref: TowReference | None = None
+        self._frame_anchor: tuple[int, float] | None = None  # (sym_off, pol)
+        self._decoded_upto = 0
+        self.message_count = 0
+
+    def push(self, epoch_indices, prompts_i) -> None:
+        if len(epoch_indices) == 0:
+            return
+        self._epochs = np.concatenate(
+            [self._epochs, np.asarray(epoch_indices, np.int64)])
+        self._prompts = np.concatenate(
+            [self._prompts, np.asarray(prompts_i, np.float64)])
+        self._decode()
+
+    def _symbols(self):
+        """NH10-wipe and integrate 1 ms prompts to 100 sps soft symbols
+        (+amp == bit 1); returns (soft, start_epochs)."""
+        nh_pm = 1.0 - 2.0 * self.NH10.astype(np.float64)
+        p = self._prompts
+        e0 = int(self._epochs[0])
+        n_nh = self.NH_EPOCHS
+        if self.bit_phase is None:
+            self.bit_phase = _overlay_phase_sync(p, e0, nh_pm)
+            if self.bit_phase is None:
+                return None, None
+        off = (self.bit_phase - e0) % n_nh
+        n_b = (len(p) - off) // n_nh
+        if n_b <= 0:
+            return None, None
+        seg = p[off: off + n_b * n_nh].reshape(n_b, n_nh)
+        # chip bit b -> amplitude (1-2b): soft(+ == bit1) = -(I @ nh_pm)
+        soft = -(seg @ nh_pm)
+        starts = e0 + off + np.arange(n_b, dtype=np.int64) * n_nh
+        return soft, starts
+
+    def _try_decode_at(self, soft: np.ndarray, off: int, pol: float):
+        sym = pol * soft[off: off + self.MSG_SYMBOLS + 12]
+        if len(sym) < self.MSG_SYMBOLS + 12:
+            return None
+        bits = self._fec.viterbi_decode(sym, 300)
+        return self._cnav.decode_message(bits)
+
+    def _decode(self) -> None:
+        soft, starts = self._symbols()
+        if soft is None:
+            return
+        n = len(soft)
+        if self._frame_anchor is None:
+            for off in range(0, min(n - (self.MSG_SYMBOLS + 12), 1300)):
+                for pol in (1.0, -1.0):
+                    if self._try_decode_at(soft, off, pol) is not None:
+                        self._frame_anchor = (off, pol)
+                        self._decoded_upto = off
+                        break
+                if self._frame_anchor:
+                    break
+            if self._frame_anchor is None:
+                return
+        _, pol = self._frame_anchor
+        while self._decoded_upto + self.MSG_SYMBOLS + 12 <= n:
+            off = self._decoded_upto
+            res = self._try_decode_at(soft, off, pol)
+            if res is not None:
+                mtype, prn, tow, fields = res
+                self.assembler.push(mtype, fields)
+                self.message_count += 1
+                # CNAV TOW tags the start of the NEXT message (6 s on L5)
+                self.tow_ref = TowReference(
+                    tow_s=tow - self.MSG_PERIOD_S,
+                    epoch=int(starts[off]), polarity=1)
+            self._decoded_upto = off + self.MSG_SYMBOLS
+
+    @property
+    def half_cycle(self) -> float:
+        """+0.5 when the FEC frame sync chose the inverted polarity, i.e.
+        the Costas loop locked 180 deg off (see GpsL1CaTelemetry)."""
+        if self._frame_anchor is not None and self._frame_anchor[1] < 0:
+            return 0.5
+        return 0.0
+
+    @property
+    def have_tow(self) -> bool:
+        return self.tow_ref is not None
+
+    @property
+    def sync_failed(self) -> bool:
+        """Overlay sync watchdog: no NH phase after ~6 s of prompts means
+        the channel is mistracking (e.g. the half-cycle-per-epoch carrier
+        false lock) — signal the receiver to drop and reacquire."""
+        return self.bit_phase is None and len(self._prompts) > 6000
+
+    def transmit_time(self, epoch: int, chips: float, code_len: int = 10230,
+                      code_rate: float = 10.23e6) -> float | None:
+        if self.tow_ref is None:
+            return None
+        de = epoch - self.tow_ref.epoch
+        return self.tow_ref.tow_s + (de * code_len + chips) / code_rate
+
+    def ephemeris(self):
+        return self.assembler.ephemeris()
+
+
+class GalileoE5aTelemetry:
+    """Galileo E5a-I F/NAV telemetry decoder for one channel.
+
+    Reference analog: the E5a branch of galileo_telemetry_decoder_gs.cc.
+    Each 1 ms primary-code epoch carries symbol * CS20[epoch phase]; the CS20
+    secondary code (constants.GALILEO_E5A_I.secondary_code) gives 20 ms
+    symbol sync, then pages (500 symbols / 10 s) are sync-word aligned,
+    deinterleaved, Viterbi-decoded and CRC-checked in models/nav/galileo_fnav.
+    """
+
+    PAGE_SYMBOLS = 500
+
+    def __init__(self, prn: int):
+        from gnss_sdr_tpu_torch import constants
+        from gnss_sdr_tpu_torch.models.nav import galileo_fnav
+        self._gf = galileo_fnav
+        self.prn = prn
+        cs = constants.GALILEO_E5A_I.secondary_code
+        self.CS20 = np.array([int(b) for b in cs], np.uint8)
+        self._epochs = np.zeros(0, np.int64)
+        self._prompts = np.zeros(0, np.float64)
+        self.assembler = galileo_fnav.FnavAssembler(prn)
+        self.bit_phase: int | None = None       # epoch phase of symbol start
+        self.page_phase: int | None = None      # symbol index of page start
+        self._decoded_upto = 0
+        self.page_count = 0
+        self.tow_ref: TowReference | None = None
+
+    def push(self, epoch_indices, prompts_i) -> None:
+        if len(epoch_indices) == 0:
+            return
+        self._epochs = np.concatenate(
+            [self._epochs, np.asarray(epoch_indices, np.int64)])
+        self._prompts = np.concatenate(
+            [self._prompts, np.asarray(prompts_i, np.float64)])
+        self._decode()
+
+    def _symbols(self):
+        """CS20-wipe and integrate 1 ms prompts to 50 sps soft symbols
+        (+amp == bit 1)."""
+        cs_pm = 1.0 - 2.0 * self.CS20.astype(np.float64)
+        p = self._prompts
+        e0 = int(self._epochs[0])
+        if self.bit_phase is None:
+            self.bit_phase = _overlay_phase_sync(p, e0, cs_pm)
+            if self.bit_phase is None:
+                return None, None
+        off = (self.bit_phase - e0) % 20
+        n_b = (len(p) - off) // 20
+        if n_b <= 0:
+            return None, None
+        seg = p[off: off + n_b * 20].reshape(n_b, 20)
+        # chip bit b -> amplitude (1-2b): soft(+ == bit1) = -(I @ cs_pm)
+        soft = -(seg @ cs_pm)
+        starts = e0 + off + np.arange(n_b, dtype=np.int64) * 20
+        return soft, starts
+
+    def _decode(self) -> None:
+        soft, starts = self._symbols()
+        if soft is None:
+            return
+        n = len(soft)
+        if self.page_phase is None:
+            for i in range(0, n - self.PAGE_SYMBOLS):
+                if self._gf.decode_page(soft[i: i + self.PAGE_SYMBOLS]):
+                    self.page_phase = i % self.PAGE_SYMBOLS
+                    self._decoded_upto = i
+                    break
+            if self.page_phase is None:
+                return
+        while self._decoded_upto + self.PAGE_SYMBOLS <= n:
+            i = self._decoded_upto
+            res = self._gf.decode_page(soft[i: i + self.PAGE_SYMBOLS])
+            if res is not None:
+                ptype, fields = res
+                self.assembler.push(ptype, fields)
+                self.page_count += 1
+                if "tow" in fields:
+                    self.tow_ref = TowReference(
+                        tow_s=fields["tow"], epoch=int(starts[i]), polarity=1)
+            self._decoded_upto = i + self.PAGE_SYMBOLS
+
+    @property
+    def have_tow(self) -> bool:
+        return self.tow_ref is not None
+
+    @property
+    def sync_failed(self) -> bool:
+        return self.bit_phase is None and len(self._prompts) > 6000
+
+    def transmit_time(self, epoch: int, chips: float, code_len: int = 10230,
+                      code_rate: float = 10.23e6) -> float | None:
+        if self.tow_ref is None:
+            return None
+        de = epoch - self.tow_ref.epoch
+        return self.tow_ref.tow_s + (de * code_len + chips) / code_rate
+
+    def ephemeris(self) -> KeplerEphemeris | None:
+        return self.assembler.ephemeris()
+
+
 def make_telemetry(signal: str, prn: int):
     """Telemetry decoder factory by signal code (reference:
-    GNSSBlockFactory::GetTlmBlock). GPS L1 C/A LNAV and Galileo E1-B I/NAV
-    are ported so far."""
+    GNSSBlockFactory::GetTlmBlock). GPS L1 C/A LNAV, GPS L5 CNAV, Galileo
+    E1-B I/NAV and Galileo E5a F/NAV are ported so far."""
     if signal == "1C" and prn < 120:
         return GpsL1CaTelemetry(prn)
     if signal == "1B":
         return GalileoE1BTelemetry(prn)
+    if signal == "L5":
+        return GpsL5ITelemetry(prn)
+    if signal == "5X":
+        return GalileoE5aTelemetry(prn)
     raise NotImplementedError(
         f"telemetry for signal {signal!r} PRN {prn} is not ported yet")

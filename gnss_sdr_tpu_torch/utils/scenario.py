@@ -3,7 +3,8 @@
 The system-test enabler (reference analog: the external gnss-sim spawned by
 ``position_test.cc``): picks visible satellites for a receiver truth position,
 fits each satellite's transmit-time trajectory to the generator's
-(delay, doppler, doppler-rate) model, attaches real LNAV bits, and returns
+(delay, doppler, doppler-rate) model, attaches real navigation symbols
+(LNAV, I/NAV, CNAV, F/NAV), and returns
 everything needed to synthesize IQ and to verify the receiver's output
 against absolute truth.
 """
@@ -34,9 +35,13 @@ class Scenario:
     prns: list[int]
     spec: constants.SignalSpec = constants.GPS_L1_CA
 
-    def generate(self, seed: int = 0, noise: bool = True) -> np.ndarray:
+    def generate(self, seed: int = 0, noise: bool = True,
+                 **kw) -> np.ndarray:
+        """The scenario's IQ; ``kw`` goes to :func:`generator.generate`
+        (``with_pilot``, ``device``)."""
         return generator.generate(self.spec, self.sats, self.fs,
-                                  self.duration_s, seed=seed, noise=noise)
+                                  self.duration_s, seed=seed, noise=noise,
+                                  **kw)
 
 
 def _fit_t_tx(eph, rcv: np.ndarray, t0: float, duration_s: float):
@@ -188,6 +193,118 @@ def build_galileo_e1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 8
                     spec=spec)
 
 
+def build_gps_l5_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0),
+                          t0_gps: float = 352800.06, duration_s: float = 30.0,
+                          fs: float = 11.0e6, n_sats: int = 4,
+                          cn0_dbhz: float = 50.0,
+                          el_mask_deg: float = 15.0) -> Scenario:
+    """GPS L5I signal-level scenario with CNAV (6 s messages, 100 sps).
+
+    The 10.23 Mcps L5 code needs fs > 10.23 MHz; 11 MHz keeps sampling
+    incommensurate with the chip rate (no flat-peak DLL bias). CNAV cycles
+    message types 10/11/30 so the ephemeris completes within 18 s of frame
+    sync (reference: gps_l5_telemetry_decoder_gs.cc timing). The worst-case
+    budget is ~2 s tracking start + ~6 s to the next message anchor + 18 s
+    for a full 10/11/30 cycle = 26 s; 30 s leaves margin for the
+    last-acquired channel.
+    """
+    from gnss_sdr_tpu_torch.models.nav import gps_cnav
+
+    spec = constants.GPS_L5_I
+    ephs = constellation.almanac_constellation()
+    for e in ephs.values():
+        e.tgd = 0.0
+    rcv = geodesy.geodetic_to_ecef(*rcv_llh)
+    vis = constellation.visible_sats(ephs, rcv, t0_gps,
+                                     el_mask_deg=el_mask_deg)
+    chosen = [prn for prn, _, _ in vis[:n_sats]]
+    if len(chosen) < n_sats:
+        raise RuntimeError(f"only {len(chosen)} visible sats")
+
+    fc = spec.carrier_freq_hz
+    t_tx0 = {prn: constellation.simulate_observation(
+        ephs[prn], rcv, t0_gps).t_tx_sv for prn in chosen}
+    # symbol-stream origin: a 6 s CNAV message boundary before min t_tx(0)
+    tow_sym_start = 6.0 * np.floor(min(t_tx0.values()) / 6.0)
+    n_messages = int(np.ceil((duration_s + 12.0) / 6.0)) + 1
+
+    sats = []
+    for prn in chosen:
+        eph = ephs[prn]
+        a3, a2, a1, a0 = _fit_t_tx(eph, rcv, t0_gps, duration_s)
+        sym = gps_cnav.encode_symbol_stream(eph, tow_sym_start, n_messages,
+                                            period_s=6.0)
+        sats.append(generator.SatParams(
+            prn=prn, cn0_dbhz=cn0_dbhz,
+            carrier_phase_cycles=_geometric_phase0(fc, a0),
+            doppler_hz=fc * (a1 - 1.0), doppler_rate_hz_s=fc * 2.0 * a2,
+            doppler_jerk_hz_s2=fc * 6.0 * a3,
+            code_delay_s=tow_sym_start - a0,
+            data_bits=generator.lnav_bits_to_symbols(sym)))
+
+    return Scenario(rcv_ecef=rcv, rcv_llh=rcv_llh, t0_gps=t0_gps,
+                    tow_bits_start=tow_sym_start, duration_s=duration_s,
+                    fs=fs, ephemerides=ephs, sats=sats, prns=chosen,
+                    spec=spec)
+
+
+def build_galileo_e5a_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0),
+                               t0_gps: float = 352800.11,
+                               fs: float = 12.0e6, n_sats: int = 4,
+                               cn0_dbhz: float = 50.0,
+                               margin_s: float = 7.0) -> Scenario:
+    """Galileo E5a-I (10.23 Mcps, CS20 overlay) scenario with F/NAV.
+
+    F/NAV pages last 10 s and the ephemeris needs IOD-matched types 1+2+3
+    (galileo_fnav.FnavAssembler); the page cycle is rotated so the first
+    page the receiver sees in full is type 1, and the duration is computed
+    to cover the 1-2-3 set plus ``margin_s`` of fix time. Reference analog:
+    the Channels_5X chain (galileo_e5a_* adapters + FNAV decoder).
+    """
+    from gnss_sdr_tpu_torch.models.nav import galileo_fnav
+
+    spec = constants.GALILEO_E5A_I
+    ephs = constellation.almanac_constellation()
+    for e in ephs.values():
+        e.tgd = 0.0
+        e.gm = constants.GM_EARTH_GAL
+    rcv = geodesy.geodetic_to_ecef(*rcv_llh)
+    vis = constellation.visible_sats(ephs, rcv, t0_gps, el_mask_deg=15.0)
+    chosen = [prn for prn, _, _ in vis[:n_sats]]
+    if len(chosen) < n_sats:
+        raise RuntimeError(f"only {len(chosen)} visible sats")
+
+    fc = spec.carrier_freq_hz
+    t_tx0 = {prn: constellation.simulate_observation(
+        ephs[prn], rcv, t0_gps).t_tx_sv for prn in chosen}
+    # page origin: the 10 s slot containing the earliest t_tx(0); slot 0 is
+    # only partially received, so rotate the cycle to 4,1,2,3 — the
+    # ephemeris completes at the end of slot 3 (origin + 40 s)
+    tow_page_start = 10.0 * np.floor(min(t_tx0.values()) / 10.0)
+    offset0 = min(t_tx0.values()) - tow_page_start
+    duration_s = float(40.0 - offset0 + margin_s)
+    n_pages = int(np.ceil((duration_s + offset0) / 10.0)) + 2
+
+    sats = []
+    for prn in chosen:
+        eph = ephs[prn]
+        a3, a2, a1, a0 = _fit_t_tx(eph, rcv, t0_gps, duration_s)
+        symbols = galileo_fnav.encode_stream(eph, tow_page_start, n_pages,
+                                             wn=eph.week, page_offset=3)
+        sats.append(generator.SatParams(
+            prn=prn, cn0_dbhz=cn0_dbhz,
+            carrier_phase_cycles=_geometric_phase0(fc, a0),
+            doppler_hz=fc * (a1 - 1.0), doppler_rate_hz_s=fc * 2.0 * a2,
+            doppler_jerk_hz_s2=fc * 6.0 * a3,
+            code_delay_s=tow_page_start - a0,
+            data_bits=generator.lnav_bits_to_symbols(symbols)))
+
+    return Scenario(rcv_ecef=rcv, rcv_llh=rcv_llh, t0_gps=t0_gps,
+                    tow_bits_start=tow_page_start, duration_s=duration_s,
+                    fs=fs, ephemerides=ephs, sats=sats, prns=chosen,
+                    spec=spec)
+
+
 # 5 satellites (prn, Doppler Hz, code delay s) per signal for
 # tracking_handoff_case (Galileo delays within its 4 ms code period)
 _HANDOFF_SATS = {
@@ -195,7 +312,13 @@ _HANDOFF_SATS = {
            (19, 3900.0, 8.4e-4), (24, -800.0, 2.0e-4)),
     "1B": ((5, 1100.0, 3.1e-4), (19, -2300.0, 1.7e-3), (17, 420.0, 2.9e-3),
            (10, 3600.0, 6.3e-4), (24, -900.0, 3.7e-3)),
+    "L5": ((1, 1500.0, 1.3e-4), (6, -2100.0, 4.1e-4), (9, 520.0, 7.7e-4),
+           (17, 3300.0, 9.2e-4), (24, -700.0, 2.6e-4)),
+    "5X": ((11, 1250.0, 2.2e-4), (12, -2600.0, 5.3e-4), (19, 610.0, 8.1e-4),
+           (26, 3100.0, 9.6e-5), (33, -950.0, 4.4e-4)),
 }
+# default sample rates of tracking_handoff_case (the JAX e2e tests' rates)
+_HANDOFF_FS = {"1C": 2.0e6, "1B": 4.0e6, "L5": 11.0e6, "5X": 12.0e6}
 
 
 def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
@@ -204,15 +327,20 @@ def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
                           seed: int = 11) -> dict:
     """An open-loop tracking input: 5 generated satellites of ``signal``
     ("1C": GPS L1 C/A at 2 MSps; "1B": Galileo E1-B with its E1-C pilot at
-    4 MSps, BOC(1,1) tables at 2 entries per chip), 45-49 dB-Hz, on
+    4 MSps, BOC(1,1) tables at 2 entries per chip; "L5": GPS L5I with its
+    NH10 overlay and the L5Q pilot at 11 MSps; "5X": Galileo E5a-I with its
+    CS20 overlay and the E5a-Q / CS100 pilot at 12 MSps), 45-49 dB-Hz, on
     ``n_channels`` channels, every channel but the last (idle) handed off to
     satellite ``ch % 5`` slightly off the truth (+15 Hz in code rate, 15 Hz
     steps of Doppler error), over one dispatch of ``chunks`` 100 ms chunks
-    plus the halo. ``pilot`` tracks the E1-C pilot with an E1-B data prompt
-    ([C, 2, Lt] tables). ``extended`` switches channel 1 to coherent
-    integration over a bit (20 epochs for GPS, 5 for Galileo) and channel
-    3 to the same with a secondary-code wipe (a 10-chip code for GPS, the
-    E1-C CS25 for Galileo).
+    plus the halo. ``pilot`` tracks the pilot with a data prompt ([C, 2, Lt]
+    tables). ``extended`` switches channel 1 to coherent integration over a
+    bit or symbol (20 epochs for GPS L1, 5 for Galileo E1, one secondary
+    code period for L5 / E5a) and channel 3 (L5 / E5a on fewer than 5
+    channels: the last live one) to the same with a secondary-code wipe (a
+    10-chip code for GPS L1, the E1-C CS25 for Galileo E1, the data
+    component's NH10 / CS20 for L5 / E5a, as the receiver installs it after
+    symbol sync).
 
     Returns dict(cfg, chunk [L, 2] float32 numpy, state (the carry on
     ``device``), tables [C, Lt] or [C, 2, Lt] float32 numpy, sec [C, 32]
@@ -223,7 +351,7 @@ def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
     from gnss_sdr_tpu_torch.receiver import tracking as trk
 
     spec = constants.SIGNALS[signal]
-    fs = fs or (2.0e6 if signal == "1C" else 4.0e6)
+    fs = fs or _HANDOFF_FS[signal]
     cfg = trk.default_config(spec, fs, 100, track_pilot=pilot)
     if chunks > 1:
         cl = cfg.chunk_len * chunks
@@ -269,9 +397,16 @@ def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
             state = trk.set_extension(state, 3, 20, 0)
             state = trk.set_secondary(state, sec, 3,
                                       [0, 0, 1, 0, 1, 1, 0, 1, 0, 0], 2)
-        else:
+        elif signal == "1B":
             state = trk.set_extension(state, 1, 5, 2)
             state = trk.set_extension(state, 3, 5, 0)
             state = trk.set_secondary(
                 state, sec, 3, codes.pilot_secondary_chips(signal, 17), 0)
+        else:
+            # the wipe on channel 3, or on the last live channel of fewer
+            chips = [int(b) for b in spec.secondary_code]
+            wipe = min(3, n_ch - 2)
+            state = trk.set_extension(state, 1, len(chips), 3)
+            state = trk.set_extension(state, wipe, len(chips), 0)
+            state = trk.set_secondary(state, sec, wipe, chips, 0)
     return dict(cfg=cfg, chunk=chunk, state=state, tables=tables, sec=sec)

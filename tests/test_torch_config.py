@@ -35,13 +35,13 @@ CONFS = sorted((ROOT / "conf").glob("*.conf"))
 UNPORTED = {
     "beidou_b1i": ("receiver", "signal"),
     "beidou_b3i": ("receiver", "signal"),
-    "galileo_e5a": ("receiver", "signal"),
+    "galileo_e5a": None,
     "glonass_l1": ("receiver", "signal"),
     "glonass_l2": ("receiver", "signal"),
     "gps_l2c": ("receiver", "signal"),
-    "gps_l5": ("receiver", "signal"),
+    "gps_l5": None,
     "hybrid_gps_galileo": None,
-    "ppp_static": ("receiver", "signal_plan"),
+    "ppp_static": None,           # PPP: refused by attach_outputs
     "gps_l1_notch": ("registry", "InputFilter.implementation=Notch_Filter"),
     "labsat3": ("registry",
                 "SignalSource.implementation=Labsat_Signal_Source"),
@@ -208,7 +208,7 @@ def test_rate_conditioner_block_lengths_match_jax():
 def test_check_ported_galileo_e1_names():
     """The Galileo E1 blocks of this receiver (PCPS acquisition, VEML
     tracking, the E1-B telemetry decoder) pass; the E1 blocks the port lacks
-    and the other Galileo, GLONASS and BeiDou blocks still raise."""
+    and the GPS L2C, GLONASS and BeiDou blocks still raise."""
     ok = ("Channels_1B.count=4\n"
           "Acquisition_1B.implementation=Galileo_E1_PCPS_Ambiguous_"
           "Acquisition\n"
@@ -230,9 +230,9 @@ def test_check_ported_galileo_e1_names():
             ("Channels_1B.count=4\nTracking_1B.implementation="
              "Galileo_E1_TCP_CONNECTOR_Tracking\n",
              "Tracking_1B.implementation=Galileo_E1_TCP_CONNECTOR"),
-            ("Channels_5X.count=4\nTracking_5X.implementation="
-             "Galileo_E5a_DLL_PLL_Tracking\n",
-             "Tracking_5X.implementation=Galileo_E5a_DLL_PLL_Tracking"),
+            ("Channels_2S.count=4\nTracking_2S.implementation="
+             "GPS_L2_M_DLL_PLL_Tracking\n",
+             "Tracking_2S.implementation=GPS_L2_M_DLL_PLL_Tracking"),
             ("Channels_1G.count=4\nTelemetryDecoder_1G.implementation="
              "GLONASS_L1_CA_Telemetry_Decoder\n",
              "TelemetryDecoder_1G.implementation=GLONASS_L1_CA"),
@@ -243,3 +243,49 @@ def test_check_ported_galileo_e1_names():
         cfg = tini.receiver_config_from_ini(tc)
         with pytest.raises(NotImplementedError, match=named):
             treg.check_ported(tc, cfg.signal_plan)
+
+
+def test_wideband_confs_bind_and_run():
+    """The shipped GPS L5 and Galileo E5a confs: the same ReceiverConfig as
+    the JAX binding (L5Q pilot tracking; E5a's noncoherent I/Q CAF
+    acquisition with its window and both components, bound as JAX binds
+    them), every block ported, a receiver built on the CPU."""
+    for stem, signal, n_ch in (("gps_l5", "L5", 6), ("galileo_e5a", "5X", 5)):
+        conf = ROOT / "conf" / f"{stem}.conf"
+        want = jini.receiver_config_from_ini(jini.FileConfiguration(conf))
+        tconf = tini.FileConfiguration(conf)
+        got = tini.receiver_config_from_ini(tconf)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert (got.signal, got.n_channels) == (signal, n_ch)
+        treg.check_ported(tconf, got.signal_plan)
+        rx = trx.Receiver(got, device="cpu")
+        g, = rx.groups
+        assert g.trk_cfg.n_max == (11064 if signal == "L5" else 12064)
+        if signal == "L5":
+            assert got.track_pilot and g.trk_cfg.track_pilot
+            assert g.code_tables.shape == (6, 2, 10230)
+        else:
+            # the variant's keys bind into the group's parameters
+            assert dict(dict(got.group_params)["5X"]) == dict(
+                acq_variant="e5a_caf", acq_caf_window_hz=3000.0,
+                acq_both_components=True, acq_doppler_max_hz=5000.0,
+                acq_doppler_step_hz=125.0, pll_bw_hz=25.0, dll_bw_hz=2.0)
+            assert (g.rx_cfg.acq_variant, g.rx_cfg.acq_caf_window_hz,
+                    g.rx_cfg.acq_both_components) == ("e5a_caf", 3000.0, True)
+            assert rx._acq_window(g) == (12000, 12000)
+
+
+def test_acquisition_variants_refused_but_e5a_caf():
+    """acq_variant="e5a_caf" runs; the other variants and the unported
+    signals still raise, naming the field."""
+    base = dict(fs=12.0e6, n_channels=2, prns=(1, 2))
+    trx.Receiver(trx.ReceiverConfig(signal="5X", acq_variant="e5a_caf",
+                                    **base), device="cpu")
+    for variant in ("e1_8ms", "quicksync", "cccwsr", "tong", "pcps_8ms"):
+        with pytest.raises(NotImplementedError, match="acq_variant"):
+            trx.Receiver(trx.ReceiverConfig(signal="5X", acq_variant=variant,
+                                            **base), device="cpu")
+    for signal in ("2S", "1G", "2G", "B1", "B3"):
+        with pytest.raises(NotImplementedError, match="signal"):
+            trx.Receiver(trx.ReceiverConfig(signal=signal, **base),
+                         device="cpu")

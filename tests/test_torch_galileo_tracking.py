@@ -71,6 +71,17 @@ def _complex_close(a, b):
     assert not bad.any(), np.argwhere(bad)[:5]
 
 
+def moment_bounds(ema_i2_plus_q2, e, eps=1e-4):
+    """Bounds on the C/N0 moments' difference from JAX's when every prompt
+    P in them lies within |dP| <= e |P| + eps of JAX's: with s^2 =
+    ``ema_i2_plus_q2`` (the EMA of |P|^2) and d = e s + eps,
+    |d ema_i2_minus_q2| <= d (2 s + d) and |d ema_abs_i| <= d
+    (tests/test_torch_tracking.py derives them)."""
+    s = np.sqrt(np.asarray(ema_i2_plus_q2, np.float64))
+    d = e * s + eps
+    return {"ema_i2_minus_q2": d * (2 * s + d), "ema_abs_i": d}
+
+
 def test_plain_correlator_tap_components_match_jax():
     jnp = pytest.importorskip("jax.numpy")
     from gnss_sdr_tpu.ops import correlator as jcorr
