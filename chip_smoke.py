@@ -38,15 +38,24 @@ Phases, one line each, with their seconds:
             fields equal; float columns and float carry fields within rtol
             1e-4 / atol 1e-4; the prompt
             within |dz| <= 1e-4 |z| + 1e-4 (tests/test_torch_tracking.py's
-            tolerances).
+            tolerances); each case runs at the cluster size the wrapper
+            picks. Then GPS L1, the E1 pilot and the E5a pilot handoffs at
+            every cluster size m = 1, 2, 4, 8, forced: bit for bit the
+            plain version's packed rows and carry, or the phase fails.
 5. timing   K1 and its plain version at shapes (a) and (b), CUDA events over
             500 launches each after a warm-up, in turns (plain, kernel,
             kernel, plain), beside the bound computed from the shapes; K2
             per 100 ms chunk at the GPS shape (C=8 and C=128), the E1
             pilot shape (C=6 and C=128), GPS L5 (C=4 and C=128) and the
-            E5a pilot shape (C=4 and C=128), in turns with the eager loop on
-            the plain correlator (and, for single-component tables, the
-            eager loop on K1), beside K2's bound.
+            E5a pilot shape (C=4 and C=128), GPS L5 with the L5Q pilot
+            (C=6) and E5a data-only (C=4): at the chosen cluster size and
+            at m=1 in turns, then every m, and the step split into its
+            parts (ring fill with the step's barriers, accumulate, reduce,
+            scalar update) by the timing builds that leave parts out, in
+            turns with the eager loop on the plain correlator (and, for
+            single-component tables, the eager loop on K1), beside K2's
+            bound. With --k2-baseline DIR, DIR's K2 (another checkout,
+            the parent commit's say) at the same shapes before and after.
 6. main     the port's receiver on a generated 28 s, 6-satellite, 47 dB-Hz
             GPS L1 C/A scenario at 2 MSps (seed 123): all satellites tracked,
             ephemerides decoded, fixes within 2D < 2 m / 3D < 5 m of the
@@ -520,6 +529,49 @@ def phase_k2(device, with_k16: bool) -> dict:
     return _worst(worst, phase_k2_two_groups(device))
 
 
+# the forced cluster sizes' cases: GPS L1 C/A, the E1 pilot and the E5a
+# pilot handoffs (6 channels)
+K2_CLUSTER_CASES = (("plain", {}), ("f_e1_pilot", dict(signal="1B", pilot=True)),
+                    ("k_e5a_pilot", dict(signal="5X", pilot=True)))
+
+
+def phase_k2_clusters(device) -> None:
+    """K2 at every cluster size m (forced) on K2_CLUSTER_CASES: each launch
+    gives the plain version's bits, packed rows and carry (the split of a
+    channel's lanes over m blocks keeps the sums' order)."""
+    from gnss_sdr_tpu_torch.ops import correlator
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    for name, kw in K2_CLUSTER_CASES:
+        t0 = time.perf_counter()
+        cfg, chunk, state, tables, sec = k2_case(device, **kw)
+        ref_state, out = trk.track_chunk(
+            cfg, chunk, state, tables, sec,
+            correlate=correlator.epoch_correlate_plain)
+        ref = trk.pack_host_outputs(out, ref_state.loss_of_lock)
+        ref_carry = tk.pack_carry(ref_state)
+        chosen = tk.cluster_size(cfg, tables.shape[0], chunk.shape[0],
+                                 tables.shape[-1], 0 if sec is None
+                                 else sec.shape[1], device.index or 0)
+        bits = {}
+        for m in tk.CLUSTER_SIZES:
+            carry, packed = tk.track_chunk_carry(
+                cfg, chunk, tk.pack_carry(state), tables, sec, cluster=m)
+            torch.cuda.synchronize()
+            bits[m] = (torch.equal(packed.view(torch.int32),
+                                   ref.view(torch.int32))
+                       and torch.equal(carry, ref_carry))
+        _line("K2", t0, case=f"{name}_forced_m", C=int(tables.shape[0]),
+              steps=cfg.n_steps, chosen_m=chosen,
+              bitwise_by_m=json.dumps({str(m): b for m, b in bits.items()}
+                                      ).replace(" ", ""),
+              ok=all(bits.values()))
+        if not all(bits.values()):
+            raise SystemExit(f"K2 at a forced cluster size is not bit for "
+                             f"bit its plain version at {name}: {bits}")
+
+
 def k2_work(cfg, out, n_ch: int, table_len: int, width: int) -> tuple:
     """(bytes, flops) one K2 launch needs on these inputs, from the plain
     version's outputs: the union of the epoch windows read once, the code
@@ -551,19 +603,74 @@ K2_TIMING = (("k2_c8", dict(n_channels=8)), ("k2_c128", dict(n_channels=128)),
              ("k2_l5_c128", dict(signal="L5", n_channels=128)),
              ("k2_e5ap_c4", dict(signal="5X", pilot=True, n_channels=4)),
              ("k2_e5ap_c128", dict(signal="5X", pilot=True,
-                                   n_channels=128)))
+                                   n_channels=128)),
+             # the shipped L5 conf's pilot tracking on its 6 channels, and
+             # the in-process e5a receiver's data-only tracking
+             ("k2_l5p_c6", dict(signal="L5", pilot=True, n_channels=6)),
+             ("k2_e5a_c4", dict(signal="5X", n_channels=4)))
+
+# K2 of another checkout (the parent commit's, say), timed at the same
+# shapes in a process of its own: the kernel's own time per launch, in ms,
+# printed as one JSON object
+BASELINE_TIMING = r"""
+import json, sys, torch
+from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+from gnss_sdr_tpu_torch.utils import scenario
+dev = torch.device("cuda", 0)
+out = {}
+for name, kw in json.loads(sys.argv[1]):
+    c = scenario.tracking_handoff_case(dev, **kw)
+    chunk = torch.from_numpy(c["chunk"]).to(dev)
+    tables = torch.from_numpy(c["tables"]).to(dev)
+    carry = tk.pack_carry(c["state"])
+    packed = torch.empty((c["cfg"].n_steps, tables.shape[0], tk.PACKED_COLS),
+                         device=dev)
+    args = tk.kernel_args(c["cfg"], chunk, carry, tables, None,
+                          torch.empty_like(carry), packed)
+    ts = []
+    for n in (3, 20, 20):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            tk.launch_kernel(args)
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b) / n)
+    out[name] = ts[1:]
+print(json.dumps(out))
+"""
 
 
-def phase_timing_k2(device, smi: str) -> dict:
-    """K2 per 100 ms chunk at each K2_TIMING shape: the raw launch in turns
-    with the eager loop on the plain correlator and (single-component
-    tables only: K1 does not route taps) on K1, both host-bound, one call
-    each per turn."""
+def _baseline_times(baseline: pathlib.Path) -> dict:
+    """BASELINE_TIMING run in ``baseline`` (a checkout of the repository):
+    {shape: [ms, ms]}."""
+    baseline = pathlib.Path(baseline).resolve()
+    shapes = json.dumps([[n, kw] for n, kw in K2_TIMING])
+    done = subprocess.run([sys.executable, "-c", BASELINE_TIMING, shapes],
+                          cwd=baseline, capture_output=True, text=True,
+                          env={**__import__("os").environ,
+                               "PYTHONPATH": str(baseline)},
+                          timeout=600)
+    if done.returncode != 0:
+        raise SystemExit(f"baseline K2 timing failed:\n{done.stderr[-3000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def phase_timing_k2(device, smi: str, baseline=None) -> dict:
+    """K2 per 100 ms chunk at each K2_TIMING shape: the raw launch at the
+    chosen cluster size and at m=1, in turns (chosen, m=1, m=1, chosen), with
+    the eager loop on the plain correlator and (single-component tables
+    only: K1 does not route taps) on K1, both host-bound, one call each per
+    turn; the step split into its parts by the timing builds that leave
+    parts out (tk.PART_BUILDS), at the chosen m. With ``baseline`` (a
+    checkout), that checkout's K2 at the same shapes before and after."""
     from gnss_sdr_tpu_torch.ops import correlator
     from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
     from gnss_sdr_tpu_torch.receiver import tracking as trk
 
     results = {}
+    base_a = _baseline_times(baseline) if baseline else {}
     for name, kw in K2_TIMING:
         t0 = time.perf_counter()
         cfg, chunk, state, tables, _ = k2_case(device, **kw)
@@ -575,9 +682,15 @@ def phase_timing_k2(device, smi: str) -> dict:
 
         kargs = tk.kernel_args(cfg, chunk, carry, tables, None, carry_out,
                                packed)
+        kargs1 = tk.kernel_args(cfg, chunk, carry, tables, None, carry_out,
+                                packed, cluster=1)
+        m = kargs[0].cluster
 
         def kernel():
             tk.launch_kernel(kargs)
+
+        def kernel_m1():
+            tk.launch_kernel(kargs1)
 
         def plain():
             st, o = trk.track_chunk(cfg, chunk, state, tables,
@@ -593,12 +706,35 @@ def phase_timing_k2(device, smi: str) -> dict:
 
         with_k1 = not cfg.track_pilot
         _time_ms(kernel, 3)                               # warm-up
+        _time_ms(kernel_m1, 3)
         for fn in (plain, wrapper) + ((eager_k1,) if with_k1 else ()):
             _time_ms(fn, 1)
         p1 = _time_ms(plain, 1)
         k_a = _time_ms(kernel, 20)
+        m1_a = _time_ms(kernel_m1, 20)
+        m1_b = _time_ms(kernel_m1, 20)
         k_b = _time_ms(kernel, 20)
         p2 = _time_ms(plain, 1)
+        # every cluster size, in turn after the chosen one and m=1
+        sweep = {}
+        for mm in tk.CLUSTER_SIZES:
+            ka = tk.kernel_args(cfg, chunk, carry, tables, None, carry_out,
+                                packed, cluster=mm)
+            tk.launch_kernel(ka)                          # warm-up
+            sweep[mm] = _time_ms(lambda: tk.launch_kernel(ka), 20)
+        parts = {}
+        for part, target in tk.PART_BUILDS.items():
+            tk.launch_kernel(kargs, target)               # warm-up
+            parts[part] = _time_ms(lambda: tk.launch_kernel(kargs, target),
+                                   20)
+        full = (k_a + k_b) / 2
+        us = 1e3 / cfg.n_steps                            # ms per chunk -> us per step
+        split = dict(
+            fill_us=parts["fill"] * us,
+            accumulate_us=(parts["fill_accumulate"] - parts["fill"]) * us,
+            reduce_us=(parts["fill_accumulate_reduce"]
+                       - parts["fill_accumulate"]) * us,
+            update_us=(full - parts["fill_accumulate_reduce"]) * us)
         e1 = _time_ms(eager_k1, 1) if with_k1 else float("nan")
         e2 = _time_ms(eager_k1, 1) if with_k1 else float("nan")
         w = _time_ms(wrapper, 20)
@@ -607,7 +743,9 @@ def phase_timing_k2(device, smi: str) -> dict:
         nbytes, flops = k2_work(cfg, out, n_ch, tables[0].numel(),
                                 carry.shape[1])
         t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-        r = dict(ms=(k_a + k_b) / 2, plain_ms=(p1 + p2) / 2,
+        r = dict(ms=full, m1_ms=(m1_a + m1_b) / 2, cluster=m, split=split,
+                 sweep=sweep,
+                 plain_ms=(p1 + p2) / 2,
                  eager_k1_ms=(e1 + e2) / 2, wrapper_ms=w,
                  bound_ms=max(t_bytes, t_flops) * 1e3,
                  bound_by="bytes" if t_bytes >= t_flops else "operations",
@@ -617,14 +755,32 @@ def phase_timing_k2(device, smi: str) -> dict:
         results[name] = r
         _line("timing", t0, shape=name, C=n_ch, steps=cfg.n_steps,
               n_max=cfg.n_max, tile=tk.tile_len(cfg.n_max),
-              shared_bytes=r["smem"], kernel_ms=f"{r['ms']:.4f}",
+              shared_bytes=tk.shared_bytes(
+                  cfg.n_max, tables.shape[-1],
+                  2 if cfg.track_pilot else 1, m),
+              cluster=m, kernel_ms=f"{r['ms']:.4f}",
               kernel_turns_ms=f"{k_a:.4f}/{k_b:.4f}",
+              m1_ms=f"{r['m1_ms']:.4f}", m1_turns_ms=f"{m1_a:.4f}/{m1_b:.4f}",
+              by_m_ms="/".join(f"{mm}:{t:.4f}" for mm, t in sweep.items()),
+              step_us=f"{full * us:.3f}",
+              **{k: f"{v:.3f}" for k, v in split.items()},
               wrapper_ms=f"{w:.4f}",
               eager_plain_ms=f"{r['plain_ms']:.3f}",
               eager_plain_turns_ms=f"{p1:.3f}/{p2:.3f}",
               eager_k1_ms=f"{r['eager_k1_ms']:.3f}",
               bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
               bytes=int(nbytes), flops=int(flops), card=f'"{smi}"')
+    if baseline:
+        base_b = _baseline_times(baseline)
+        for name, _ in K2_TIMING:
+            a, b = base_a[name], base_b[name]
+            results[name]["baseline_ms"] = (sum(a) + sum(b)) / 4
+            _line("timing", time.perf_counter(), shape=name,
+                  baseline=f'"{baseline}"',
+                  baseline_ms=f"{results[name]['baseline_ms']:.4f}",
+                  baseline_turns_ms="/".join(f"{v:.4f}" for v in a + b),
+                  kernel_ms=f"{results[name]['ms']:.4f}",
+                  m1_ms=f"{results[name]['m1_ms']:.4f}", card=f'"{smi}"')
     return results
 
 
@@ -650,8 +806,12 @@ def _breakdown(phase: str, t0: float, spent: dict, rx, **extra) -> None:
     the wait for the packed outputs is finish minus consume."""
     wait = spent["_finish_tracking"] - spent["_consume_tracking"]
     n_disp = max(rx.tracking_dispatches, 1)
+    up = rx.upload_seconds
     _line(phase, t0, step="breakdown",
           upload_s=f"{spent['_upload']:.3f}",
+          upload_quantize_s=f"{up['quantize']:.3f}",
+          upload_copy_s=f"{up['copy']:.3f}",
+          upload_dequant_s=f"{up['dequant']:.3f}",
           acquisition_s=f"{spent['_run_acquisition']:.3f}",
           tracking_enqueue_s=f"{spent['_dispatch_tracking']:.3f}",
           tracking_wait_s=f"{wait:.3f}",
@@ -1413,6 +1573,10 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse phases 3, 4, 6, 8, 9 and 10 on the CPU "
                          "(plain versions)")
+    ap.add_argument("--k2-baseline", type=pathlib.Path, default=None,
+                    help="a checkout of the repository (the parent commit, "
+                         "say) whose K2 is timed at the same shapes before "
+                         "and after this one's")
     args = ap.parse_args(argv)
 
     from gnss_sdr_tpu_torch.ops import correlator
@@ -1446,7 +1610,9 @@ def main(argv=None) -> int:
 
     from gnss_sdr_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
-    built = cuda_build.build_many(["correlator", "tracking"])
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    built = cuda_build.build_many(["correlator", "tracking",
+                                   *tk.PART_BUILDS.values()])
     for name, info in built.items():
         for ln in info["report"].splitlines():
             if "ptxas" in ln or "error" in ln.lower():
@@ -1457,8 +1623,9 @@ def main(argv=None) -> int:
     correlator.launches = 0
     k1_err = phase_k1(device, correlator)
     k2_err = phase_k2(device, with_k16=True)
+    phase_k2_clusters(device)
     timing = phase_timing(device, correlator, smi)
-    timing_k2 = phase_timing_k2(device, smi)
+    timing_k2 = phase_timing_k2(device, smi, args.k2_baseline)
     k1_own = correlator.launches
     main_run = phase_main(device, 28.0, check_fix=True)
     rx, x = main_run["rx"], main_run["x"]
@@ -1522,6 +1689,12 @@ def main(argv=None) -> int:
         "plain_ms": k2c8["plain_ms"],
         "bound_ms": k2c8["bound_ms"],
         "bound_by": k2c8["bound_by"],
+        "cluster": k2c8["cluster"],
+        "m1_ms": k2c8["m1_ms"],
+        "shapes": {name: {k: r[k] for k in ("ms", "m1_ms", "cluster",
+                                            "bound_ms", "bound_by",
+                                            "plain_ms")}
+                   for name, r in timing_k2.items()},
         "e1_pilot_ms": e1p["ms"],
         "e1_pilot_plain_ms": e1p["plain_ms"],
         "e1_pilot_bound_ms": e1p["bound_ms"],

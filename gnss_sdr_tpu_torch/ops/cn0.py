@@ -13,7 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gnss_sdr_tpu_torch.ops.correlator import fma32
+from gnss_sdr_tpu_torch.ops.correlator import const
 
 _EPS = float(np.float32(1e-12))
 
@@ -35,19 +35,15 @@ def cn0_update(state: Cn0State, prompt: torch.Tensor, valid: torch.Tensor,
     keep the reference's bits."""
     i = prompt.real
     q = prompt.imag
-    qq = q * q
-    p2 = fma32(i, i, qq)
-    a = torch.full_like(p2, float(np.float32(alpha)))
-
-    def upd(old, new):
-        return torch.where(valid, fma32(a, new - old, old), old)
-
-    return Cn0State(
-        ema_abs_i=upd(state.ema_abs_i, torch.abs(i)),
-        ema_p2=upd(state.ema_p2, p2),
-        ema_i2_minus_q2=upd(state.ema_i2_minus_q2, fma32(i, i, -qq)),
-        ema_i2_plus_q2=upd(state.ema_i2_plus_q2, p2),
-    )
+    qq = (q * q).double()
+    ii = i.double() * i.double()            # exact in float64
+    a = const(float(np.float32(alpha)), i, torch.float64)
+    p2 = (ii + qq).to(torch.float32)
+    # the four moments' fma32(a, new - old, old) in one pass
+    old = torch.stack(list(state))
+    new = torch.stack([torch.abs(i), p2, (ii - qq).to(torch.float32), p2])
+    upd = (a * (new - old).double() + old.double()).to(torch.float32)
+    return Cn0State(*torch.where(valid, upd, old).unbind(0))
 
 
 def cn0_dbhz(state: Cn0State, coh_time_s: torch.Tensor) -> torch.Tensor:
@@ -57,9 +53,11 @@ def cn0_dbhz(state: Cn0State, coh_time_s: torch.Tensor) -> torch.Tensor:
     C/N0 = (Pd / Pn) / T_coh.
     """
     pd = state.ema_abs_i ** 2
-    pn = torch.clamp(state.ema_p2 - pd, min=_EPS)
+    eps = const(_EPS, pd)
+    pn = torch.clamp(state.ema_p2 - pd, min=eps)
     snr = pd / pn
-    return 10.0 * torch.log10(torch.clamp(snr / coh_time_s, min=_EPS))
+    return const(10.0, pd) * torch.log10(torch.clamp(snr / coh_time_s,
+                                                     min=eps))
 
 
 def carrier_lock_metric(state: Cn0State) -> torch.Tensor:
@@ -68,4 +66,5 @@ def carrier_lock_metric(state: Cn0State) -> torch.Tensor:
     > ~0.85 means solid phase lock (reference uses 0.85 via
     carrier_lock_detector with NBD/NBP).
     """
-    return state.ema_i2_minus_q2 / torch.clamp(state.ema_i2_plus_q2, min=_EPS)
+    den = state.ema_i2_plus_q2
+    return state.ema_i2_minus_q2 / torch.clamp(den, min=const(_EPS, den))

@@ -62,6 +62,21 @@ MAX_TABLE_BYTES = 48 * 1024 - BLOCK_THREADS // 32 * 2 * MAX_TAPS * 4
 _TWO_PI = float(np.float32(2.0 * np.pi))
 
 
+def const(value, like: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``value`` as a 0-dim tensor of ``dtype`` (default: ``like``'s) on
+    ``like``'s device, made once per value, dtype and device. An operation between a tensor and a
+    Python number converts the number to a tensor on every call (an
+    ``aten::to`` in the eager loop's profile); one between two tensors of
+    one dtype does not, and rounds the same: the number is rounded once to
+    the dtype either way."""
+    return _const(value, dtype or like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=1024)
+def _const(value, dtype, device) -> torch.Tensor:
+    return torch.full((), value, dtype=dtype, device=device)
+
+
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 a*b + c rounded once, as a fused multiply-add.
 
@@ -70,8 +85,29 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     sample count), so the port must round it the same way everywhere: the
     product of two float32 is exact in float64, and one float64 add rounded
     to float32 equals fmaf except on a double-rounding tie (about 2^-29 of
-    inputs). The CUDA kernels compute the same float64 sum."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
+    inputs). The CUDA kernels compute the same float64 sum. An argument
+    already in float64 (a float32 value widened once, e.g. a constant made
+    by :func:`const`) is taken as it is."""
+    return (_f64(a) * _f64(b) + _f64(c)).to(torch.float32)
+
+
+def _f64(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.float64 else t.double()
+
+
+@functools.lru_cache(maxsize=16)
+def _sample_axis(n_max: int, device) -> tuple:
+    """The window's sample index n < n_max as int32 (the mask), int64 (the
+    window gather) and float64 (the NCO sums), made once."""
+    n_i = torch.arange(n_max, dtype=torch.int64, device=device)
+    return n_i.to(torch.int32), n_i, n_i.to(torch.float64)
+
+
+@functools.lru_cache(maxsize=16)
+def _component_base(tap_components: tuple, lt: int, device) -> torch.Tensor:
+    """Each tap's first entry in the flattened [C, G * Lt] tables, [K, 1]."""
+    return (torch.tensor(tap_components, dtype=torch.int64, device=device)
+            * lt)[:, None]
 
 
 def epoch_correlate_plain(chunk: torch.Tensor, offsets: torch.Tensor,
@@ -102,37 +138,56 @@ def epoch_correlate_plain(chunk: torch.Tensor, offsets: torch.Tensor,
     against the JAX package sums in that same order."""
     dev = chunk.device
     n_len = chunk.shape[0]
-    n_i = torch.arange(n_max, dtype=torch.int32, device=dev)
-    n = n_i.to(torch.float32)                                      # [N]
-    # window gather, clamped like a JAX gather; masked past n_samples
-    win_idx = (offsets[:, None] + n_i[None, :]).clamp(0, n_len - 1)
-    win = chunk[win_idx.long()]                                    # [C, N, 2]
-    mask = (n[None, :] < n_samples.to(torch.float32)[:, None]).to(torch.float32)
+    n_i32, n_i, n64 = _sample_axis(n_max, dev)
+    zero, one = const(0.0, chunk), const(1.0, chunk)
+    # window gather, clamped like a JAX gather; masked past n_samples. A
+    # sample (I, Q) moves as one 8-byte word.
+    win_idx = (offsets.long()[:, None] + n_i[None, :]).clamp_(0, n_len - 1)
+    words = chunk.contiguous().view(torch.float64).reshape(-1)     # [L]
+    win = torch.take(words, win_idx).view(torch.float32).reshape(
+        *win_idx.shape, 2)                                         # [C, N, 2]
+    mask = torch.where(n_i32[None, :] < n_samples[:, None], one, zero)
 
-    phase = torch.remainder(
-        fma32(carr_phase_steps[:, None], n[None, :], carr_phase_fracs[:, None]),
-        1.0)
-    c = torch.cos(_TWO_PI * phase)
-    s = torch.sin(_TWO_PI * phase)
+    # the carrier and code NCOs' product-sums (fma32) in one pass
+    nco = (torch.stack([carr_phase_steps, code_phase_steps]).double()[
+        :, :, None] * n64 + torch.stack([carr_phase_fracs, rem_code_phases]
+                                        ).double()[:, :, None]
+           ).to(torch.float32)                                     # [2, C, N]
+    ph, chips = nco[0], nco[1]
+    # remainder(x, 1.0) as x - floor(x): the same bits but the sign of zero
+    phase = ph - torch.floor(ph)
+    arg = const(_TWO_PI, phase) * phase
+    c = torch.cos(arg)
+    s = torch.sin(arg)
     wr = win[..., 0]
     wi = win[..., 1]
     xr = (wr * c + wi * s) * mask
     xi = (wi * c - wr * s) * mask
 
-    chips = fma32(code_phase_steps[:, None], n[None, :],
-                  rem_code_phases[:, None])
-    idx_f = (chips[:, None, :] + tap_offsets[None, :, None]) * float(table_rate)
+    idx_f = chips[:, None, :] + tap_offsets[None, :, None]
+    if table_rate != 1:
+        idx_f = idx_f * const(float(table_rate), idx_f)
     lt = code_tables.shape[-1]
-    idx = torch.remainder(torch.floor(idx_f).to(torch.int32), lt)  # [C, K, N]
+    # the floor-mod of the integral float32 floor v, as v - Lt floor(v / Lt):
+    # for |v| < 2^24 (every tracking window's index is below 2 Lt) the
+    # rounded quotient is within 1/Lt of the true one and never crosses an
+    # integer, so this is exact, as int32's floor-mod is
+    fl = torch.floor(idx_f)
+    ltf = const(float(lt), fl)
+    idx = (fl - ltf * torch.floor(fl / ltf)).to(torch.int64)      # [C, K, N]
     flat = code_tables.reshape(code_tables.shape[0], -1)           # [C, G*Lt]
     if tap_components is not None:
-        comp = torch.tensor(tap_components, dtype=torch.int32, device=dev)
-        idx = idx + (comp * lt)[None, :, None]
-    codes_kn = torch.gather(flat, 1,
-                            idx.reshape(idx.shape[0], -1).long()
+        idx = idx + _component_base(tuple(tap_components), lt, dev)
+    codes_kn = torch.gather(flat, 1, idx.reshape(idx.shape[0], -1)
                             ).reshape(idx.shape)                   # [C, K, N]
     x2 = torch.stack([xr, xi], dim=1)                              # [C, 2, N]
-    return _block_sum(codes_kn[:, :, None, :] * x2[:, None])       # [C, K, 2]
+    # the products, written into _block_sum's zero-padded rows directly
+    rows = -(-n_max // BLOCK_THREADS)
+    prod = torch.empty((*codes_kn.shape[:2], 2, rows * BLOCK_THREADS),
+                       dtype=x2.dtype, device=dev)
+    prod[..., n_max:].zero_()
+    torch.mul(codes_kn[:, :, None, :], x2[:, None], out=prod[..., :n_max])
+    return _row_sum(prod.view(*prod.shape[:-1], rows, BLOCK_THREADS))
 
 
 def _block_sum(p: torch.Tensor) -> torch.Tensor:
@@ -144,10 +199,15 @@ def _block_sum(p: torch.Tensor) -> torch.Tensor:
     n = p.shape[-1]
     rows = -(-n // BLOCK_THREADS)
     p = torch.nn.functional.pad(p, (0, rows * BLOCK_THREADS - n))
-    p = p.reshape(*p.shape[:-1], rows, BLOCK_THREADS)
-    acc = p[..., 0, :]
-    for r in range(1, rows):
-        acc = acc + p[..., r, :]
+    return _row_sum(p.reshape(*p.shape[:-1], rows, BLOCK_THREADS))
+
+
+def _row_sum(p: torch.Tensor) -> torch.Tensor:
+    """:func:`_block_sum` of ``p`` [..., rows, BLOCK_THREADS], the window
+    already cut into zero-padded rows of the block's threads."""
+    acc = p[..., 0, :].clone()
+    for r in range(1, p.shape[-2]):
+        acc.add_(p[..., r, :])
     lanes = acc.reshape(*acc.shape[:-1], BLOCK_THREADS // 32, 32)
     for d in (16, 8, 4, 2, 1):
         lanes = lanes[..., :d] + lanes[..., d:2 * d]

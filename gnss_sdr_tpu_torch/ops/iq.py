@@ -146,9 +146,12 @@ QUANT4_RMS = 2.5
 
 
 def quantize4(x, rms: float | None = None,
-              scratch: np.ndarray | None = None) -> np.ndarray:
+              scratch: np.ndarray | None = None,
+              stats: dict | None = None) -> np.ndarray:
     """Host-side: complex64 (or float [..., 2]) -> packed-nibble uint8
-    [...] (one byte per complex sample) at QUANT4_RMS LSB per input rms."""
+    [...] (one byte per complex sample) at QUANT4_RMS LSB per input rms.
+    ``stats`` (a dict) receives ``clipped``, the number of I / Q components
+    that fell outside the nibble's -8..7 and were clipped."""
     x2 = split(x) if np.asarray(x).dtype.kind == "c" else np.asarray(x)
     if rms is None:
         rms = measure_rms(x2)
@@ -159,6 +162,9 @@ def quantize4(x, rms: float | None = None,
     else:
         buf = np.multiply(x2, s, dtype=np.float32)
     np.rint(buf, out=buf)
+    if stats is not None:
+        stats["clipped"] = int(np.count_nonzero(buf < -8)
+                               + np.count_nonzero(buf > 7))
     np.clip(buf, -8, 7, out=buf)
     u = buf.astype(np.int8).astype(np.uint8)    # two's complement nibbles
     return ((u[..., 0] & 0xF) | ((u[..., 1] & 0xF) << 4)).astype(np.uint8)

@@ -16,6 +16,15 @@ from typing import NamedTuple
 
 import torch
 
+from gnss_sdr_tpu_torch.ops.correlator import const
+
+
+def _mul(c, t):
+    """c * t; a Python number c is made a tensor once (:func:`const`)."""
+    if isinstance(c, torch.Tensor) or not isinstance(t, torch.Tensor):
+        return c * t
+    return const(c, t) * t
+
 
 class Loop3State(NamedTuple):
     """Third-order loop integrators (also used for FLL-assisted PLL)."""
@@ -39,11 +48,11 @@ def pll3_update(state: Loop3State, phase_err_cycles: torch.Tensor,
     a2 = 1.414
 
     acc2 = state.acc2 + dt_s * (w0p ** 3 * phase_err_cycles
-                                + w0f ** 2 * freq_err_hz)
+                                + _mul(w0f ** 2, freq_err_hz))
     acc1 = state.acc1 + dt_s * (acc2
-                                + a3 * w0p ** 2 * phase_err_cycles
-                                + a2 * w0f * freq_err_hz)
-    out = acc1 + b3 * w0p * phase_err_cycles
+                                + _mul(a3, w0p ** 2) * phase_err_cycles
+                                + _mul(_mul(a2, w0f), freq_err_hz))
+    out = acc1 + _mul(b3, w0p) * phase_err_cycles
     return Loop3State(acc1=acc1, acc2=acc2), out
 
 
@@ -57,5 +66,5 @@ def dll2_update(state: Loop2State, code_err_chips: torch.Tensor,
     w0 = dll_bw_hz / 0.53
     a2 = 1.414
     acc1 = state.acc1 + dt_s * w0 ** 2 * code_err_chips
-    out = acc1 + a2 * w0 * code_err_chips
+    out = acc1 + _mul(a2, w0) * code_err_chips
     return Loop2State(acc1=acc1), out

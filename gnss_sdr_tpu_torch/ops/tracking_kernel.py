@@ -27,6 +27,14 @@ The receiver keeps its carry in this packed form on the card between
 dispatches, so a dispatch (:func:`track_chunk_carry`) is one launch and two
 allocations, with the parameter block cached per configuration and shape;
 :func:`track_chunk_fused` takes and returns the ``TrackingState`` form.
+
+Each channel runs on a thread-block cluster of m blocks (``TrackParams
+.cluster``; the kernel's note says how the lanes split): :func:`cluster_size`
+picks m per dispatch shape from the channel count and how many clusters of
+each size the card can hold at once (``cudaOccupancyMaxActiveClusters``). m
+never changes a bit. A caller may force m (``cluster=``); an m outside
+:data:`CLUSTER_SIZES` is refused, and so is a cluster launch the card
+refuses: nothing falls back to another m.
 """
 
 from __future__ import annotations
@@ -53,6 +61,15 @@ MAX_SMEM_BYTES = 227 * 1024 - 4096
 # threads, at most this
 TILE_MAX = 4096
 PACKED_COLS = 13
+# blocks per channel the kernel takes: m divides the 16 warps of the
+# channel's 512 lanes, at most 8 (csrc/tracking.cu K2_CLUSTER_MAX)
+CLUSTER_SIZES = (1, 2, 4, 8)
+# the builds that leave parts of a step out (csrc/tracking.cu K2_PARTS), to
+# time the parts by difference: each runs the parts named and the step's
+# barriers
+PART_BUILDS = {"fill": "tracking:K2_PARTS=1",
+               "fill_accumulate": "tracking:K2_PARTS=3",
+               "fill_accumulate_reduce": "tracking:K2_PARTS=7"}
 
 # carry words in the kernel's order (csrc/tracking.cu enum CarryWord); the
 # nested loop-filter and C/N0 states are named "<field>.<subfield>"
@@ -163,7 +180,7 @@ class _Params(ctypes.Structure):
         "n_ch", "n_steps", "n_max", "chunk_len", "length", "table_len",
         "table_rate", "n_taps", "prompt_index", "data_prompt_index",
         "sec_stride", "pull_in_epochs", "wide_epochs", "max_lock_fail",
-        "carry_width", "n_comp", "tile")]
+        "carry_width", "n_comp", "tile", "cluster")]
         + [(n, ctypes.c_float) for n in (
             "inv_fs", "code_len", "min_cps", "emlp_scale", "inv_two_pi",
             "two_pi", "fll_gain", "code_to_carrier", "code_rate", "pll_bw",
@@ -195,19 +212,46 @@ def tile_len(n_max: int) -> int:
     return min(TILE_MAX, -(-n_max // BLOCK_THREADS) * BLOCK_THREADS)
 
 
-def shared_bytes(n_max: int, table_len: int, n_comp: int) -> int:
-    """Dynamic shared memory of one block: the two-tile window ring and the
-    staged tables (csrc/tracking.cu gnss_track_chunk)."""
-    return 2 * tile_len(n_max) * 8 + n_comp * table_len * 4
+def shared_bytes(n_max: int, table_len: int, n_comp: int,
+                 cluster: int = 1) -> int:
+    """Dynamic shared memory of one block of a ``cluster``-block channel:
+    its share of the two-tile window ring and the staged tables
+    (csrc/tracking.cu dyn_smem)."""
+    return 2 * (tile_len(n_max) // cluster) * 8 + n_comp * table_len * 4
+
+
+# windows below this many samples run one block per channel: a cluster's
+# barrier and its reads of the other blocks' sums cost ~0.7 us a step more,
+# which the spread of a few samples per lane does not save (GPS L1 at
+# n_max 2064: 0.405 ms per chunk at m=1, 0.476-0.490 at m=2-8; from ~22
+# samples per lane, L5 / E5a / E1, m=4-8 saves 16-30 %; H100, PERF.md)
+CLUSTER_MIN_SAMPLES = 8192
+
+
+def pick_cluster(n_ch: int, n_max: int, max_active, n_sm: int) -> int:
+    """The cluster size for ``n_ch`` channels with windows of up to
+    ``n_max`` samples on a card of ``n_sm`` SMs: 1 below
+    CLUSTER_MIN_SAMPLES, else the largest m of CLUSTER_SIZES with at most
+    one block per SM (n_ch m <= n_sm) at which the card holds every
+    channel's cluster at once (``max_active(m)``: how many clusters of m
+    blocks it can run together); 1 where none is. More blocks than SMs
+    share SMs, and then the cluster's barriers and its reads of the other
+    blocks' sums cost more than the spread saves (at C=128, PERF.md)."""
+    if n_max < CLUSTER_MIN_SAMPLES:
+        return 1
+    for m in sorted(CLUSTER_SIZES, reverse=True):
+        if m > 1 and n_ch * m <= n_sm and n_ch <= max_active(m):
+            return m
+    return 1
 
 
 def make_params(cfg, n_ch: int, length: int, table_len: int,
-                sec_stride: int) -> _Params:
+                sec_stride: int, cluster: int = 1) -> _Params:
     """The kernel's static configuration for ``cfg`` (a TrackingConfig) at
-    these shapes; each constant rounded as the eager loop rounds it on the
-    card. ``table_len``: one table component's length. Under pilot tracking
-    the taps are the main taps on the pilot (component 0) plus the data
-    prompt (offset 0, component 1)."""
+    these shapes, ``cluster`` blocks per channel; each constant rounded as
+    the eager loop rounds it on the card. ``table_len``: one table
+    component's length. Under pilot tracking the taps are the main taps on
+    the pilot (component 0) plus the data prompt (offset 0, component 1)."""
     main = cfg.tap_offsets
     taps = tuple(main) + ((0.0,) if cfg.track_pilot else ())
     comps = cfg.tap_components or (0,) * len(taps)
@@ -221,6 +265,7 @@ def make_params(cfg, n_ch: int, length: int, table_len: int,
         pull_in_epochs=cfg.pull_in_epochs, wide_epochs=cfg.wide_epochs,
         max_lock_fail=cfg.max_lock_fail, carry_width=carry_width(len(taps)),
         n_comp=2 if cfg.track_pilot else 1, tile=tile_len(cfg.n_max),
+        cluster=cluster,
         inv_fs=_f32(1.0 / cfg.fs), code_len=_f32(cfg.code_length_chips),
         min_cps=_f32(1e-6),
         emlp_scale=_f32(1.0 - float(main[pi + 1] - main[pi])),
@@ -240,8 +285,13 @@ def make_params(cfg, n_ch: int, length: int, table_len: int,
     return p
 
 
-def _check(cfg, chunk, carry, code_tables, sec_tables) -> None:
-    """Raise on what the kernel does not take."""
+def _check(cfg, chunk, carry, code_tables, sec_tables,
+           cluster: int | None = None) -> None:
+    """Raise on what the kernel does not take (``cluster``: a forced
+    cluster size, None to let :func:`cluster_size` pick it)."""
+    if cluster is not None and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster size {cluster}: the kernel takes m in "
+                         f"{CLUSTER_SIZES}, whole warps of its 16 per block")
     if cfg.carrier_kf:
         raise NotImplementedError("carrier_kf: the Kalman carrier loop is "
                                   "not ported yet")
@@ -291,14 +341,19 @@ def _check(cfg, chunk, carry, code_tables, sec_tables) -> None:
 
 
 @functools.cache
-def _entry():
-    """The kernel's C entry point, built and loaded on first use."""
+def _library(target: str = "tracking"):
+    """The kernel's C entry points (``gnss_track_chunk``,
+    ``gnss_track_max_clusters``), built and loaded on first use;
+    ``target`` names a build (PART_BUILDS: one that leaves parts out)."""
     from gnss_sdr_tpu_torch.utils import cuda_build
 
-    fn = cuda_build.load("tracking").gnss_track_chunk
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8
-    return fn
+    lib = cuda_build.load(target)
+    lib.gnss_track_chunk.restype = ctypes.c_int
+    lib.gnss_track_chunk.argtypes = [ctypes.c_void_p] * 8
+    lib.gnss_track_max_clusters.restype = ctypes.c_int
+    lib.gnss_track_max_clusters.argtypes = [ctypes.c_void_p,
+                                            ctypes.POINTER(ctypes.c_int)]
+    return lib
 
 
 # make_params once per configuration and shape (a receiver dispatches with
@@ -306,14 +361,38 @@ def _entry():
 cached_params = functools.lru_cache(maxsize=64)(make_params)
 
 
+@functools.lru_cache(maxsize=64)
+def cluster_size(cfg, n_ch: int, length: int, table_len: int,
+                 sec_stride: int, device_index: int) -> int:
+    """The cluster size :func:`pick_cluster` gives this dispatch shape on
+    the card ``device_index``, from the kernel's own occupancy at each m."""
+    def max_active(m: int) -> int:
+        params = make_params(cfg, n_ch, length, table_len, sec_stride, m)
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device_index):
+            err = _library().gnss_track_max_clusters(
+                ctypes.addressof(params), ctypes.byref(out))
+        if err != 0:
+            raise RuntimeError(f"gnss_track_max_clusters failed at m={m}: "
+                               f"CUDA error {err}")
+        return out.value
+
+    n_sm = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return pick_cluster(n_ch, cfg.n_max, max_active, n_sm)
+
+
 def kernel_args(cfg, chunk, carry, code_tables, sec_tables, carry_out,
-                packed) -> tuple:
+                packed, cluster: int | None = None) -> tuple:
     """The C entry's arguments for checked tensors, writing ``carry_out``
-    [C, W] int32 and ``packed`` [S, C, 13] float32 on the current stream.
-    The parameter block is kept alive in the tuple."""
+    [C, W] int32 and ``packed`` [S, C, 13] float32 on the current stream,
+    ``cluster`` blocks per channel (None: :func:`cluster_size`'s). The
+    parameter block is kept alive in the tuple."""
     n_ch, lt = code_tables.shape[0], code_tables.shape[-1]
-    params = cached_params(cfg, n_ch, chunk.shape[0], lt,
-                           0 if sec_tables is None else sec_tables.shape[1])
+    shape = (cfg, n_ch, chunk.shape[0], lt,
+             0 if sec_tables is None else sec_tables.shape[1])
+    if cluster is None:
+        cluster = cluster_size(*shape, chunk.device.index or 0)
+    params = cached_params(*shape, cluster)
     return (params, ctypes.addressof(params), chunk.data_ptr(),
             code_tables.data_ptr(),
             None if sec_tables is None else sec_tables.data_ptr(),
@@ -321,24 +400,27 @@ def kernel_args(cfg, chunk, carry, code_tables, sec_tables, carry_out,
             torch.cuda.current_stream().cuda_stream)
 
 
-def launch_kernel(args: tuple) -> None:
-    """Launch the kernel once on :func:`kernel_args`; raises on a CUDA
-    error. Not counted in ``launches`` (the wrapper counts)."""
-    err = _entry()(*args[1:])
+def launch_kernel(args: tuple, target: str = "tracking") -> None:
+    """Launch the kernel (``target``: the build, PART_BUILDS for a timing
+    one) once on :func:`kernel_args`; raises on a CUDA error, a refused
+    cluster launch included. Not counted in ``launches`` (the wrapper
+    counts)."""
+    err = _library(target).gnss_track_chunk(*args[1:])
     if err != 0:
-        raise RuntimeError(f"gnss_track_chunk launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"gnss_track_chunk launch failed (cluster of "
+                           f"{args[0].cluster}): CUDA error {err}")
 
 
 def track_chunk_carry(cfg, chunk: torch.Tensor, carry: torch.Tensor,
                       code_tables: torch.Tensor,
-                      sec_tables: torch.Tensor | None = None):
+                      sec_tables: torch.Tensor | None = None,
+                      cluster: int | None = None):
     """Run one dispatch of the tracking loop in one launch of K2 on the
     packed carry -> (new carry [C, W] int32, packed [S, C, 13]); ``chunk``
-    float32 [L, 2] on a CUDA device, L >= chunk_len + n_max. Raises on
-    anything else."""
+    float32 [L, 2] on a CUDA device, L >= chunk_len + n_max; ``cluster``
+    forces the blocks per channel. Raises on anything else."""
     global launches
-    _check(cfg, chunk, carry, code_tables, sec_tables)
+    _check(cfg, chunk, carry, code_tables, sec_tables, cluster)
     if chunk.device.type != "cuda":
         raise ValueError(f"the fused tracking kernel runs on a CUDA device, "
                          f"not {chunk.device}")
@@ -349,17 +431,18 @@ def track_chunk_carry(cfg, chunk: torch.Tensor, carry: torch.Tensor,
                          dtype=torch.float32, device=chunk.device)
     with torch.cuda.device(chunk.device):
         launch_kernel(kernel_args(cfg, chunk, carry, code_tables, sec_tables,
-                                  carry_out, packed))
+                                  carry_out, packed, cluster))
     launches += 1
     return carry_out, packed
 
 
 def track_chunk_fused(cfg, chunk: torch.Tensor, state,
                       code_tables: torch.Tensor,
-                      sec_tables: torch.Tensor | None = None):
+                      sec_tables: torch.Tensor | None = None,
+                      cluster: int | None = None):
     """:func:`track_chunk_carry` on a ``TrackingState`` -> (new_state,
     packed [S, C, 13]): packs the carry before the launch and unpacks it
     after."""
     carry, packed = track_chunk_carry(cfg, chunk, pack_carry(state),
-                                      code_tables, sec_tables)
+                                      code_tables, sec_tables, cluster)
     return unpack_carry(carry, state), packed

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 
 import numpy as np
 import torch
@@ -356,6 +357,14 @@ class Receiver:
         self._q_rms = None              # quantizer scale (upload_bits 4/8)
         self._q_rms_next = 0
         self._q_scratch: dict = {}      # per-length quantizer f32 scratch
+        # host seconds of the upload's three stages: quantize (or split) on
+        # the host, the host->device copy, the dequantization enqueued on
+        # the device
+        self.upload_seconds = {"quantize": 0.0, "copy": 0.0, "dequant": 0.0}
+        # upload_bits=4: I / Q components clipped to the nibble's range,
+        # and components quantized, since the quantizer scale was last set
+        self.upload_clipped = 0
+        self.upload_components = 0
         self._pvt_interval = int(round(
             config.pvt_output_rate_ms / config.obs_interval_ms))
         self._tick_count = 0
@@ -849,21 +858,48 @@ class Receiver:
         """ONE host->device upload per dispatch in the configured word size
         (int8 split-IQ, packed nibbles or float32), dequantized on the device
         to float32 [L, 2]. The quantizer scale refreshes every ~50 chunks
-        (receiver.py:1363-1386)."""
+        (receiver.py:1363-1386). At 4 bits the clip rate is counted
+        (``upload_clipped`` of ``upload_components``), logged at debug level
+        per upload and at info level each time the scale is set again. The
+        host seconds of each stage add up in ``upload_seconds``."""
         bits = self.cfg.upload_bits or (8 if self.cfg.upload_int8 else 32)
+        t0 = time.perf_counter()
         if bits in (4, 8):
             if self._q_rms is None or self._chunk_index >= self._q_rms_next:
+                if bits == 4 and self.upload_components:
+                    log.info("upload_bits=4: %d of %d I/Q components "
+                             "(%.4f %%) clipped since the scale was set",
+                             self.upload_clipped, self.upload_components,
+                             100.0 * self.upload_clipped
+                             / self.upload_components)
+                self.upload_clipped = self.upload_components = 0
                 self._q_rms = iq.measure_rms(chunk)
                 self._q_rms_next = self._chunk_index + 50
             scr = self._q_scratch.get(len(chunk))
             if scr is None and len(self._q_scratch) < 4:
                 scr = self._q_scratch.setdefault(
                     len(chunk), np.empty((len(chunk), 2), np.float32))
-            quant = iq.quantize4 if bits == 4 else iq.quantize8
-            host = quant(chunk, rms=self._q_rms, scratch=scr)
+            if bits == 4:
+                stats: dict = {}
+                host = iq.quantize4(chunk, rms=self._q_rms, scratch=scr,
+                                    stats=stats)
+                self.upload_clipped += stats["clipped"]
+                self.upload_components += 2 * len(chunk)
+                log.debug("upload_bits=4: %d of %d I/Q components clipped",
+                          stats["clipped"], 2 * len(chunk))
+            else:
+                host = iq.quantize8(chunk, rms=self._q_rms, scratch=scr)
         else:
             host = iq.split(chunk)
-        return iq.as_iq2(torch.from_numpy(host).to(self.device))
+        t1 = time.perf_counter()
+        dev = torch.from_numpy(host).to(self.device)
+        t2 = time.perf_counter()
+        out = iq.as_iq2(dev)
+        t3 = time.perf_counter()
+        self.upload_seconds["quantize"] += t1 - t0
+        self.upload_seconds["copy"] += t2 - t1
+        self.upload_seconds["dequant"] += t3 - t2
+        return out
 
     def process(self, samples: np.ndarray, defer: bool = False,
                 drain: bool = False) -> None:

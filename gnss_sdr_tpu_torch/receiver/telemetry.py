@@ -288,6 +288,36 @@ class GalileoE1BTelemetry:
         return self.assembler.ephemeris()
 
 
+class _History:
+    """A channel's (epoch, prompt) history, appended in place: the buffers
+    grow by doubling, so a push copies what it adds, not the whole
+    history."""
+
+    def __init__(self):
+        self._e = np.zeros(0, np.int64)
+        self._p = np.zeros(0, np.float64)
+        self.n = 0
+
+    def append(self, epoch_indices, prompts_i) -> None:
+        need = self.n + len(epoch_indices)
+        if need > len(self._e):
+            cap = max(need, 2 * len(self._e), 1024)
+            e, p = np.empty(cap, np.int64), np.empty(cap, np.float64)
+            e[: self.n], p[: self.n] = self.epochs, self.prompts
+            self._e, self._p = e, p
+        self._e[self.n: need] = np.asarray(epoch_indices, np.int64)
+        self._p[self.n: need] = np.asarray(prompts_i, np.float64)
+        self.n = need
+
+    @property
+    def epochs(self) -> np.ndarray:
+        return self._e[: self.n]
+
+    @property
+    def prompts(self) -> np.ndarray:
+        return self._p[: self.n]
+
+
 class GpsL5ITelemetry:
     """GPS L5I CNAV telemetry: 1 ms primary-code epochs carry
     symbol * NH10[epoch phase]; the 10-bit Neuman-Hofman overlay gives 10 ms
@@ -310,30 +340,27 @@ class GpsL5ITelemetry:
         nh = constants.GPS_L5_I.secondary_code
         self.NH10 = np.array([int(b) for b in nh], np.uint8)
         self.prn = prn
-        self._epochs = np.zeros(0, np.int64)
-        self._prompts = np.zeros(0, np.float64)
+        self._hist = _History()
         self.assembler = gps_cnav.CnavAssembler(prn)
         self.bit_phase: int | None = None        # epoch phase of symbol start
         self.tow_ref: TowReference | None = None
         self._frame_anchor: tuple[int, float] | None = None  # (sym_off, pol)
+        self._search_from = 0     # the first frame offset not yet tried
         self._decoded_upto = 0
         self.message_count = 0
 
     def push(self, epoch_indices, prompts_i) -> None:
         if len(epoch_indices) == 0:
             return
-        self._epochs = np.concatenate(
-            [self._epochs, np.asarray(epoch_indices, np.int64)])
-        self._prompts = np.concatenate(
-            [self._prompts, np.asarray(prompts_i, np.float64)])
+        self._hist.append(epoch_indices, prompts_i)
         self._decode()
 
     def _symbols(self):
         """NH10-wipe and integrate 1 ms prompts to 100 sps soft symbols
         (+amp == bit 1); returns (soft, start_epochs)."""
         nh_pm = 1.0 - 2.0 * self.NH10.astype(np.float64)
-        p = self._prompts
-        e0 = int(self._epochs[0])
+        p = self._hist.prompts
+        e0 = int(self._hist.epochs[0])
         n_nh = self.NH_EPOCHS
         if self.bit_phase is None:
             self.bit_phase = _overlay_phase_sync(p, e0, nh_pm)
@@ -362,7 +389,10 @@ class GpsL5ITelemetry:
             return
         n = len(soft)
         if self._frame_anchor is None:
-            for off in range(0, min(n - (self.MSG_SYMBOLS + 12), 1300)):
+            # the frame search resumes where the last push left it: an
+            # offset already tried saw the same soft symbols and failed
+            end = min(n - (self.MSG_SYMBOLS + 12), 1300)
+            for off in range(self._search_from, end):
                 for pol in (1.0, -1.0):
                     if self._try_decode_at(soft, off, pol) is not None:
                         self._frame_anchor = (off, pol)
@@ -371,6 +401,7 @@ class GpsL5ITelemetry:
                 if self._frame_anchor:
                     break
             if self._frame_anchor is None:
+                self._search_from = max(self._search_from, end)
                 return
         _, pol = self._frame_anchor
         while self._decoded_upto + self.MSG_SYMBOLS + 12 <= n:
@@ -403,7 +434,7 @@ class GpsL5ITelemetry:
         """Overlay sync watchdog: no NH phase after ~6 s of prompts means
         the channel is mistracking (e.g. the half-cycle-per-epoch carrier
         false lock) — signal the receiver to drop and reacquire."""
-        return self.bit_phase is None and len(self._prompts) > 6000
+        return self.bit_phase is None and self._hist.n > 6000
 
     def transmit_time(self, epoch: int, chips: float, code_len: int = 10230,
                       code_rate: float = 10.23e6) -> float | None:
@@ -435,11 +466,11 @@ class GalileoE5aTelemetry:
         self.prn = prn
         cs = constants.GALILEO_E5A_I.secondary_code
         self.CS20 = np.array([int(b) for b in cs], np.uint8)
-        self._epochs = np.zeros(0, np.int64)
-        self._prompts = np.zeros(0, np.float64)
+        self._hist = _History()
         self.assembler = galileo_fnav.FnavAssembler(prn)
         self.bit_phase: int | None = None       # epoch phase of symbol start
         self.page_phase: int | None = None      # symbol index of page start
+        self._search_from = 0     # the first page offset not yet tried
         self._decoded_upto = 0
         self.page_count = 0
         self.tow_ref: TowReference | None = None
@@ -447,18 +478,15 @@ class GalileoE5aTelemetry:
     def push(self, epoch_indices, prompts_i) -> None:
         if len(epoch_indices) == 0:
             return
-        self._epochs = np.concatenate(
-            [self._epochs, np.asarray(epoch_indices, np.int64)])
-        self._prompts = np.concatenate(
-            [self._prompts, np.asarray(prompts_i, np.float64)])
+        self._hist.append(epoch_indices, prompts_i)
         self._decode()
 
     def _symbols(self):
         """CS20-wipe and integrate 1 ms prompts to 50 sps soft symbols
         (+amp == bit 1)."""
         cs_pm = 1.0 - 2.0 * self.CS20.astype(np.float64)
-        p = self._prompts
-        e0 = int(self._epochs[0])
+        p = self._hist.prompts
+        e0 = int(self._hist.epochs[0])
         if self.bit_phase is None:
             self.bit_phase = _overlay_phase_sync(p, e0, cs_pm)
             if self.bit_phase is None:
@@ -479,12 +507,16 @@ class GalileoE5aTelemetry:
             return
         n = len(soft)
         if self.page_phase is None:
-            for i in range(0, n - self.PAGE_SYMBOLS):
+            # the page search resumes where the last push left it: an
+            # offset already tried saw the same soft symbols and failed
+            end = n - self.PAGE_SYMBOLS
+            for i in range(self._search_from, end):
                 if self._gf.decode_page(soft[i: i + self.PAGE_SYMBOLS]):
                     self.page_phase = i % self.PAGE_SYMBOLS
                     self._decoded_upto = i
                     break
             if self.page_phase is None:
+                self._search_from = max(self._search_from, end)
                 return
         while self._decoded_upto + self.PAGE_SYMBOLS <= n:
             i = self._decoded_upto
@@ -504,7 +536,7 @@ class GalileoE5aTelemetry:
 
     @property
     def sync_failed(self) -> bool:
-        return self.bit_phase is None and len(self._prompts) > 6000
+        return self.bit_phase is None and self._hist.n > 6000
 
     def transmit_time(self, epoch: int, chips: float, code_len: int = 10230,
                       code_rate: float = 10.23e6) -> float | None:

@@ -39,7 +39,7 @@ from gnss_sdr_tpu_torch.ops import cn0 as cn0_ops
 from gnss_sdr_tpu_torch.ops import correlator, discriminators, iq
 from gnss_sdr_tpu_torch.ops import kalman, tracking_kernel
 from gnss_sdr_tpu_torch.ops import loop_filters as lf
-from gnss_sdr_tpu_torch.ops.correlator import fma32
+from gnss_sdr_tpu_torch.ops.correlator import const, fma32
 
 # channel tracking-state codes (reference: dll_pll_veml_tracking state machine)
 STANDBY = 0
@@ -495,39 +495,62 @@ def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,
                                   "not ported yet")
     chunk = iq.as_iq2(chunk)
     dev = chunk.device
-    inv_fs = float(np.float32(1.0 / cfg.fs))   # x / fs rounds as x * inv_fs
-    code_len = float(cfg.code_length_chips)
     prompt_i = cfg.prompt_index
-    chunk_len = cfg.chunk_len
     n_ch = code_tables.shape[0]
     # pilot tracking adds the data prompt: one more tap, at offset 0, on
     # the data component of the [C, 2, Lt] tables
     tap_off = tuple(cfg.tap_offsets) + ((0.0,) if cfg.track_pilot else ())
     taps = torch.tensor(tap_off, dtype=torch.float32, device=dev)
     spacing = float(cfg.tap_offsets[prompt_i + 1] - cfg.tap_offsets[prompt_i])
-    code_to_carrier = float(np.float32(cfg.code_to_carrier))
-    fll_gain = float(np.float32(4.0 * cfg.fll_bw_hz))
     ch_idx = torch.arange(n_ch, device=dev)
-    zero_f = torch.zeros((), dtype=torch.float32, device=dev)
-    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    # every number the step combines with a tensor, as a tensor made once
+    # (a Python number is converted on every operation): each rounds to
+    # float32 (int32) as the number did, so the bits stay those of the
+    # step written with numbers
+    f32 = taps
+    i32 = torch.zeros((), dtype=torch.int32, device=dev)
+    zero_f, one_f = const(0.0, f32), const(1.0, f32)
+    zero_i, one_i = const(0, i32), const(1, i32)
+    inv_fs = const(float(np.float32(1.0 / cfg.fs)), f32)  # x / fs -> x * inv_fs
+    code_len = const(float(cfg.code_length_chips), f32)
+    min_cps = const(float(np.float32(1e-6)), f32)
+    n_max_f, n_max_i = const(float(cfg.n_max), f32), const(cfg.n_max, i32)
+    chunk_len = const(cfg.chunk_len, i32)
+    fll_gain = const(float(np.float32(4.0 * cfg.fll_bw_hz)), f32)
+    # fma32 widens these float32 values to float64 itself
+    code_to_carrier = const(float(np.float32(cfg.code_to_carrier)), f32,
+                            torch.float64)
+    code_rate = const(float(np.float32(cfg.code_rate_cps)), f32,
+                      torch.float64)
+    pll_bw = (const(cfg.pll_bw_narrow_hz, f32), const(cfg.pll_bw_hz, f32))
+    dll_bw = (const(cfg.dll_bw_narrow_hz, f32), const(cfg.dll_bw_hz, f32))
+    cn0_min = const(cfg.cn0_min_dbhz, f32)
+    lock_min = const(cfg.carrier_lock_min, f32)
+    standby, pull_in = const(STANDBY, i32), const(PULL_IN, i32)
+    wide, narrow_code = const(WIDE_TRACK, i32), const(NARROW_TRACK, i32)
+    warm_epochs = const(50, i32)
+    pull_in_epochs = const(cfg.pull_in_epochs, i32)
+    wide_epochs = const(cfg.wide_epochs, i32)
+    max_lock_fail = const(cfg.max_lock_fail, i32)
 
     st = state
     outs = []
     for _ in range(cfg.n_steps):
         cps = st.code_freq * inv_fs
-        safe_cps = torch.clamp(cps, min=float(np.float32(1e-6)))
+        safe_cps = torch.clamp(cps, min=min_cps)
         # bounded before the int conversion, which saturates in XLA but not
         # on every PyTorch device (an idle channel's 4092 chips / 1e-6 is
         # past int32)
         n_samp = torch.clamp(torch.ceil((code_len - st.rem_code_phase)
-                                        / safe_cps), max=float(cfg.n_max)
+                                        / safe_cps), max=n_max_f
                              ).to(torch.int32)
-        n_samp = torch.clamp(n_samp, 1, cfg.n_max)
+        n_samp = torch.clamp(n_samp, one_i, n_max_i)
         n_samp_f = n_samp.to(torch.float32)
-        tracking = st.active & (st.state > STANDBY)
-        valid = tracking & (st.sample_offset >= 0) & (st.sample_offset < chunk_len)
+        tracking = st.active & (st.state > standby)
+        valid = tracking & (st.sample_offset >= zero_i) & (
+            st.sample_offset < chunk_len)
 
-        safe_off = torch.clamp(st.sample_offset, 0, chunk_len)
+        safe_off = torch.clamp(st.sample_offset, zero_i, chunk_len)
         corr = correlate(
             chunk, safe_off, torch.where(valid, n_samp, zero_i), code_tables,
             st.rem_code_phase, cps, st.carr_phase_frac,
@@ -543,17 +566,18 @@ def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,
             corr_w = corr
         else:
             sidx = torch.remainder(eidx - st.sec_anchor,
-                                   torch.clamp(st.sec_len, min=1))
-            chip = torch.where(st.sec_len > 0, sec_tables[ch_idx, sidx],
-                               torch.ones((), dtype=torch.float32, device=dev))
+                                   torch.clamp(st.sec_len, min=one_i))
+            chip = torch.where(st.sec_len > zero_i, sec_tables[ch_idx, sidx],
+                               one_f)
             corr_w = corr * chip[:, None, None]
-        vsel = valid[:, None, None].to(torch.float32)
+        vsel = torch.where(valid, one_f, zero_f)[:, None, None]
         acc = st.acc_corr + corr_w * vsel
         acc_dt = st.acc_dt + torch.where(valid, dt, zero_f)
-        acc_cnt = st.acc_cnt + valid.to(torch.int32)
+        acc_cnt = st.acc_cnt + torch.where(valid, one_i, zero_i)
         # loop update fires on the last epoch of each accumulation window
-        rel = torch.remainder(eidx - st.ext_anchor, torch.clamp(st.ext_n, min=1))
-        boundary = valid & (rel == st.ext_n - 1)
+        rel = torch.remainder(eidx - st.ext_anchor,
+                              torch.clamp(st.ext_n, min=one_i))
+        boundary = valid & (rel == st.ext_n - one_i)
         dt_eff = acc_dt
 
         prompt2 = acc[:, prompt_i]
@@ -567,25 +591,22 @@ def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,
         prev_prompt = iq.as_complex(st.prev_prompt)
         freq_err = discriminators.fll_atan2(prev_prompt, prompt, dt_eff)
         # FLL only during pull-in, and only once a previous prompt exists
-        has_prev = torch.abs(prev_prompt) > 0
-        fll_on = (st.state == PULL_IN) & has_prev
+        has_prev = torch.abs(prev_prompt) > zero_f
+        in_pullin = st.state == pull_in
+        fll_on = in_pullin & has_prev
         freq_err = torch.where(fll_on, freq_err, zero_f)
 
         # ---- loop filters (bandwidth scheduled by state) -------------------
-        narrow = (st.state == NARROW_TRACK) | (st.ext_n > 1)
-        pll_bw = torch.where(narrow, cfg.pll_bw_narrow_hz, cfg.pll_bw_hz
-                             ).to(torch.float32)
-        dll_bw = torch.where(narrow, cfg.dll_bw_narrow_hz, cfg.dll_bw_hz
-                             ).to(torch.float32)
-        in_pullin = st.state == PULL_IN
+        narrow = (st.state == narrow_code) | (st.ext_n > one_i)
         fll_freq = fma32(dt_eff * fll_gain, freq_err, st.carrier_freq)
-        new_pll, pll_freq = lf.pll3_update(st.pll, phase_err,
-                                           torch.zeros_like(freq_err), dt_eff,
-                                           pll_bw, 0.0)
+        new_pll, pll_freq = lf.pll3_update(
+            st.pll, phase_err, zero_f, dt_eff,
+            torch.where(narrow, *pll_bw), 0.0)
         new_pll = lf.Loop3State(
             acc1=torch.where(in_pullin, fll_freq, new_pll.acc1),
             acc2=torch.where(in_pullin, zero_f, new_pll.acc2))
-        new_dll, code_cmd = lf.dll2_update(st.dll, code_err, dt_eff, dll_bw)
+        new_dll, code_cmd = lf.dll2_update(st.dll, code_err, dt_eff,
+                                           torch.where(narrow, *dll_bw))
 
         new_carrier_freq = torch.where(in_pullin, fll_freq, pll_freq)
 
@@ -597,27 +618,26 @@ def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,
         cn0_est = cn0_ops.cn0_dbhz(new_cn0, dt_cn0)
 
         doppler = new_carrier_freq - st.if_freq
-        new_code_freq = fma32(doppler, torch.full_like(doppler, code_to_carrier),
-                              torch.full_like(doppler, cfg.code_rate_cps)
-                              ) - code_cmd
+        new_code_freq = fma32(doppler, code_to_carrier, code_rate) - code_cmd
         lock_metric = cn0_ops.carrier_lock_metric(new_cn0)
-        warmed = st.epoch_count > 50
-        fail_now = warmed & (st.state >= WIDE_TRACK) & (
-            (cn0_est < cfg.cn0_min_dbhz) | (lock_metric < cfg.carrier_lock_min))
+        warmed = st.epoch_count > warm_epochs
+        fail_now = warmed & (st.state >= wide) & (
+            (cn0_est < cn0_min) | (lock_metric < lock_min))
         new_lock_fail = torch.where(
-            boundary, torch.where(fail_now, st.lock_fail + 1,
-                                  torch.clamp(st.lock_fail - 1, min=0)),
+            boundary, torch.where(fail_now, st.lock_fail + one_i,
+                                  torch.clamp(st.lock_fail - one_i,
+                                              min=zero_i)),
             st.lock_fail)
-        loss = st.loss_of_lock | (new_lock_fail > cfg.max_lock_fail)
+        loss = st.loss_of_lock | (new_lock_fail > max_lock_fail)
 
         # ---- state machine --------------------------------------------------
-        eis = torch.where(valid, st.epochs_in_state + 1, st.epochs_in_state)
-        promote_wide = (st.state == PULL_IN) & (eis >= cfg.pull_in_epochs)
-        promote_narrow = (st.state == WIDE_TRACK) & (eis >= cfg.wide_epochs)
+        eis = torch.where(valid, st.epochs_in_state + one_i,
+                          st.epochs_in_state)
+        promote_wide = in_pullin & (eis >= pull_in_epochs)
+        promote_narrow = (st.state == wide) & (eis >= wide_epochs)
         new_state_code = torch.where(
-            promote_wide, WIDE_TRACK,
-            torch.where(promote_narrow, NARROW_TRACK, st.state)
-        ).to(torch.int32)
+            promote_wide, wide,
+            torch.where(promote_narrow, narrow_code, st.state))
         eis = torch.where(promote_wide | promote_narrow, zero_i, eis)
 
         # ---- NCO phase/offset advance ---------------------------------------
@@ -626,7 +646,7 @@ def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,
         new_frac = tot - whole
         new_cycles = st.carr_phase_cycles + whole.to(torch.int32)
         new_rem = fma32(cps, n_samp_f, st.rem_code_phase) - code_len
-        new_rem = torch.clamp(new_rem, min=0.0)
+        new_rem = torch.clamp(new_rem, min=zero_f)
         new_offset = st.sample_offset + n_samp
 
         def sel(new, old):
@@ -669,7 +689,7 @@ def track_chunk(cfg: TrackingConfig, chunk: torch.Tensor, state: TrackingState,
             prev_prompt=torch.where(boundary[:, None], prompt2, st.prev_prompt),
             cn0=bselt(new_cn0, st.cn0),
             epochs_in_state=sel(eis, st.epochs_in_state),
-            epoch_count=sel(st.epoch_count + 1, st.epoch_count),
+            epoch_count=sel(st.epoch_count + one_i, st.epoch_count),
             lock_fail=bsel(new_lock_fail, st.lock_fail),
             loss_of_lock=bsel(loss, st.loss_of_lock),
             ext_n=st.ext_n, ext_anchor=st.ext_anchor,

@@ -41,17 +41,26 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> pathlib.Path:
+def _split(target: str) -> tuple[str, list[str]]:
+    """``"name"`` or ``"name:MACRO=value,..."`` (a build of csrc/<name>.cu
+    with those macros defined) -> (name, the nvcc -D flags)."""
+    name, _, defines = target.partition(":")
+    return name, [f"-D{d}" for d in defines.split(",") if d]
+
+
+def library_path(target: str) -> pathlib.Path:
+    name, defines = _split(target)
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_many(names) -> dict:
-    """Compile ``csrc/<name>.cu`` for every name not built already, one
-    ``nvcc`` per source, all started together. Returns {name: {"path",
+    """Compile ``csrc/<name>.cu`` for every name not built already (a name
+    may carry macros, ``"name:MACRO=value"``), one ``nvcc`` per build, all
+    started together. Returns {name: {"path",
     "seconds", "report"}} where ``report`` is nvcc's output (the ``-Xptxas
     -v`` register / shared-memory / spill lines); raises if a build
     fails."""
@@ -64,9 +73,10 @@ def build_many(names) -> dict:
             results[name] = dict(path=out, seconds=0.0, report="(cached)")
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        source, defines = _split(name)
         procs[name] = (out, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-             str(CSRC / f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+             str(CSRC / f"{source}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for name, (out, tmp, proc) in procs.items():
@@ -83,7 +93,8 @@ def build_many(names) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library for ``csrc/<name>.cu`` (or a build of it with
+    macros, ``"name:MACRO=value"``), building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
         path = library_path(name)

@@ -174,15 +174,21 @@ def test_block_sum_is_the_kernels_order():
     np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(got, p.astype(np.float64).sum(-1), rtol=1e-5,
                                atol=1e-2)
-    # both kernels' blocks have that many threads: the shared header's one
-    # constant, which each kernel launches with
+    # both kernels sum over that many lanes: the shared header's one
+    # constant; K1 launches blocks of that many threads, K2 splits each
+    # channel's lanes over the cluster's blocks (GNSS_THREADS / m threads
+    # each, C m blocks)
     csrc = pathlib.Path(tcorr.__file__).resolve().parents[1] / "csrc"
     src = (csrc / "epoch_correlate.cuh").read_text()
     assert re.search(r"#define GNSS_THREADS (\d+)", src).group(1) == str(nt)
     for name in ("correlator.cu", "tracking.cu"):
         src = (csrc / name).read_text()
         assert "__launch_bounds__(GNSS_THREADS)" in src, name
-        assert re.search(r"<<<[^,]+, GNSS_THREADS,", src), name
+    assert re.search(r"<<<[^,]+, GNSS_THREADS,",
+                     (csrc / "correlator.cu").read_text())
+    src = (csrc / "tracking.cu").read_text()
+    assert "cfg.blockDim = dim3(GNSS_THREADS / p.cluster, 1, 1);" in src
+    assert "cfg.gridDim = dim3(p.n_ch * p.cluster, 1, 1);" in src
 
 
 def test_kernel_library_keyed_on_headers(tmp_path, monkeypatch):

@@ -12,6 +12,8 @@
   step; float fields within rtol / atol 1e-4, correlator sums (the
   prompt, every tap, the carry's coherent accumulator) as complex values as
   above (tests/test_torch_tracking.py's tolerances).
+- The same loop fed JAX's own correlator sums (``correlate=``) keeps
+  JAX's bits in every field that feeds an int field.
 - ``track_multi_packed`` (GPS L1 C/A at 4 MSps and E1 with pilot on one
   shared chunk, each on its slab) against JAX's, the int32 columns 9-11
   compared exactly (JAX's own test masks them).
@@ -82,6 +84,50 @@ def moment_bounds(ema_i2_plus_q2, e, eps=1e-4):
     return {"ema_i2_minus_q2": d * (2 * s + d), "ema_abs_i": d}
 
 
+def jax_correlate(chunk, offsets, n_samples, code_tables, *params,
+                  n_max, table_rate=1, tap_components=None):
+    """A ``correlate=`` for the port's eager loop that returns the JAX
+    package's correlator sums (``batch_epoch_correlate``, its gather path)
+    on the loop's own inputs: fed these, the loop shows what the sums' order
+    alone does to it."""
+    import jax.numpy as jnp
+    from gnss_sdr_tpu.ops import correlator as jcorr
+
+    args = (chunk, offsets, n_samples, code_tables) + params
+    out = jcorr.batch_epoch_correlate(
+        *(jnp.asarray(t.numpy()) for t in args), n_max=n_max,
+        table_rate=table_rate, tap_components=tap_components)
+    return torch.from_numpy(np.array(out))
+
+
+# fed JAX's sums, the fields that keep other roundings than the
+# reference's: two reported floats (its log10, its division) and the DLL
+# integrator (w0 = Bn / 0.53: XLA multiplies by the reciprocal, the eager
+# loop on the CPU divides); none of them is floored into an int field
+FED_OTHER_ROUNDING = ("cn0_dbhz", "carrier_lock", "dll.acc1")
+
+
+def assert_fed_jax_sums_keep_bits(jst, jout, tst, tout):
+    """Every output field and carry field of the port's loop, fed JAX's
+    sums, holds JAX's bits but those of FED_OTHER_ROUNDING."""
+    for f in tout._fields:
+        if f in FED_OTHER_ROUNDING:
+            continue
+        a, b = np.asarray(getattr(jout, f)), getattr(tout, f).numpy()
+        assert a.dtype == b.dtype and np.array_equal(
+            a.view(np.int32) if a.dtype == np.float32 else a,
+            b.view(np.int32) if b.dtype == np.float32 else b), f
+    tst = ttrk.state_to_numpy(tst)
+    for name in ttrk.TrackingState._fields:
+        a, b = getattr(jst, name), getattr(tst, name)
+        for field, x, y in (zip(a._fields, a, b)
+                            if name in ("dll", "pll", "cn0")
+                            else [(name, a, b)]):
+            if f"{name}.{field}" not in FED_OTHER_ROUNDING:
+                np.testing.assert_array_equal(y, np.asarray(x),
+                                              err_msg=f"{name}.{field}")
+
+
 def test_plain_correlator_tap_components_match_jax():
     jnp = pytest.importorskip("jax.numpy")
     from gnss_sdr_tpu.ops import correlator as jcorr
@@ -135,7 +181,25 @@ def open_loop(request):
         torch.from_numpy(c["tables"]),
         None if sec is None else torch.from_numpy(sec))
     return dict(name=request.param, cfg=cfg, jst=jst, jout=jout, tst=tst,
-                tout=tout)
+                tout=tout, case=c)
+
+
+def run_fed_jax_sums(open_loop):
+    """The port's eager loop on the fixture's case, fed JAX's sums."""
+    c = open_loop["case"]
+    sec = None if c["sec"] is None else torch.from_numpy(c["sec"])
+    return ttrk.track_chunk(open_loop["cfg"], torch.from_numpy(c["chunk"]),
+                            c["state"], torch.from_numpy(c["tables"]), sec,
+                            correlate=jax_correlate)
+
+
+def test_fed_jax_sums_keep_jax_bits(open_loop):
+    """Fed JAX's correlator sums, the port's loop keeps JAX's bits in every
+    field but FED_OTHER_ROUNDING: what is left of the difference the other
+    tests bound is the sums' summation order."""
+    tst, tout = run_fed_jax_sums(open_loop)
+    assert_fed_jax_sums_keep_bits(open_loop["jst"], open_loop["jout"], tst,
+                                  tout)
 
 
 def test_open_loop_matches_jax(open_loop):

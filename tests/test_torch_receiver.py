@@ -105,3 +105,40 @@ def test_acquisition_assigns_like_jax(kdisp_iq, assisted, monkeypatch):
         np.testing.assert_allclose(getattr(ta, f).numpy(),
                                    np.asarray(getattr(tb, f)), rtol=1e-6,
                                    err_msg=f)
+
+
+def test_upload_counts_and_logs_the_4bit_clip_rate(caplog):
+    """At upload_bits=4 the receiver counts the I / Q components the nibble
+    quantizer clips, logs them per upload (debug) and, when the scale is set
+    again after JAX's ~50 chunks, the rate since it was last set (info); the
+    scale's refresh policy is JAX's. A constructed chunk: unit-rms noise
+    with 37 components pushed far past the 4-bit range. Each upload stage's
+    host seconds add up."""
+    from gnss_sdr_tpu_torch.ops import iq
+
+    rx = Receiver(ReceiverConfig(fs=2.0e6, upload_bits=4), device="cpu")
+    n = rx.chunk_len + rx.n_max
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64) * np.float32(np.sqrt(0.5))
+    spikes = rng.choice(2 * n, 37, replace=False)
+    flat = x.view(np.float32)
+    flat[spikes] = np.where(spikes % 3 == 0, -50.0, 50.0)
+    rms = iq.measure_rms(x)
+    s = np.float32(iq.QUANT4_RMS / rms)
+    q = np.rint(flat * s)                  # the nibble holds -8 .. 7
+    want = int(np.count_nonzero((q < -8) | (q > 7)))
+    assert want >= 37
+    with caplog.at_level("DEBUG", logger="gnss_sdr_tpu_torch"):
+        out = rx._upload(x)
+        assert out.shape == (n, 2) and out.dtype == torch.float32
+        assert (rx.upload_clipped, rx.upload_components) == (want, 2 * n)
+        assert f"{want} of {2 * n} I/Q components clipped" in caplog.text
+        rx._upload(x)                          # same scale: counts add up
+        assert rx.upload_clipped == 2 * want
+        rx._chunk_index = rx._q_rms_next       # JAX's refresh is due
+        rx._upload(x)
+    assert (f"{2 * want} of {4 * n} I/Q components "
+            f"({100.0 * want / (2 * n):.4f} %) clipped") in caplog.text
+    assert rx.upload_clipped == want           # counted from the new scale
+    assert all(v > 0.0 for v in rx.upload_seconds.values())

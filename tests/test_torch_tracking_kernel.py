@@ -20,8 +20,12 @@ Run as a script, the file prints, for each seed given (default 1-8 and
 in units of the rtol / atol 1e-4 bound:
 
     PYTHONPATH=. python tests/test_torch_tracking_kernel.py [SEED ...]
+
+and with ``--profile`` the eager loop's host operations per step and its
+seconds per chunk at the L5 shape (PERF.md's eager-loop profile).
 """
 
+import ctypes
 import dataclasses
 import pathlib
 import re
@@ -122,6 +126,59 @@ def test_carry_layout_matches_kernel():
             names += [n.strip().split("[")[0] for n in
                       decl.split(None, 1)[1].split(",")]
     assert names == [n for n, _ in tk._Params._fields_]
+
+
+def test_cluster_field_follows_the_tile():
+    """TrackParams carries the cluster size m after the tile length, an int
+    (the layout test above holds the whole order); make_params fills it."""
+    names = [n for n, _ in tk._Params._fields_]
+    assert names[names.index("tile") + 1] == "cluster"
+    assert dict(tk._Params._fields_)["cluster"] is ctypes.c_int
+    cfg = ttrk.default_config(constants.GPS_L1_CA, FS, 100)
+    assert tk.make_params(cfg, 8, 1, 1023, 0).cluster == 1
+    assert tk.make_params(cfg, 8, 1, 1023, 0, 4).cluster == 4
+    # each block of a cluster holds its lanes' share of the ring
+    assert tk.shared_bytes(cfg.n_max, 1023, 1, 4) == \
+        2 * (tk.tile_len(cfg.n_max) // 4) * 8 + 1023 * 4
+
+
+@pytest.mark.parametrize("n_ch, n_max, room, want", [
+    (4, 11064, {8: 16, 4: 33, 2: 66}, 8),   # L5: every channel on 8 SMs
+    (6, 16064, {8: 16, 4: 33, 2: 66}, 8),   # E1 pilot
+    (8, 2064, {8: 16, 4: 33, 2: 66}, 1),    # GPS L1: too few samples
+    (6, 4064, {8: 16, 4: 33, 2: 66}, 1),    # GPS L1 at 4 MSps
+    (128, 12064, {8: 16, 4: 33, 2: 66}, 1),  # C=128 fills the card at m=1
+    (17, 12064, {8: 20, 4: 33, 2: 66}, 4),  # 17 x 8 blocks > 132 SMs
+    (20, 12064, {8: 16, 4: 33, 2: 66}, 4),
+    (40, 12064, {8: 16, 4: 33, 2: 66}, 2),
+    (4, 12064, {8: 2, 4: 4, 2: 8}, 4),      # large shared memory
+    (1, 12064, {8: 0, 4: 0, 2: 0}, 1)])     # no cluster fits: one block
+def test_cluster_choice(n_ch, n_max, room, want):
+    """m is 1 below CLUSTER_MIN_SAMPLES samples per window, else the
+    largest cluster size that puts at most one block on each of the card's
+    132 SMs and at which every channel's cluster runs at once (the card's
+    room for clusters at each m)."""
+    assert tk.pick_cluster(n_ch, n_max, room.__getitem__, 132) == want
+
+
+def test_check_refuses_a_bad_cluster_size():
+    """m must split the 16 warps of a channel's lanes into whole warps, at
+    most 8 blocks: 3, 16 and 0 are refused before any launch."""
+    cfg = ttrk.default_config(constants.GPS_L1_CA, FS, 100)
+    n = cfg.chunk_len + cfg.n_max
+    good = dict(chunk=torch.zeros((n, 2)),
+                carry=tk.pack_carry(ttrk.init_state(3, device="cpu")),
+                code_tables=torch.ones((3, 1023)), sec_tables=None)
+    for m in tk.CLUSTER_SIZES + (None,):
+        tk._check(cfg, **good, cluster=m)
+    for m in (0, 3, 16, -1):
+        with pytest.raises(ValueError, match="cluster size"):
+            tk._check(cfg, **good, cluster=m)
+    before = tk.launches
+    with pytest.raises(ValueError, match="cluster size"):
+        tk.track_chunk_carry(cfg, good["chunk"], good["carry"],
+                             good["code_tables"], cluster=3)
+    assert tk.launches == before
 
 
 @pytest.fixture(scope="module")
@@ -267,6 +324,33 @@ def test_cuda_kernel_matches_eager_plain(extended):
     _assert_carry_close(new, ref_state)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["gps", "e1_pilot", "e5a_pilot"])
+def test_cuda_kernel_bitwise_at_forced_cluster(case, m):
+    """K2 with each channel on a forced cluster of m blocks gives the eager
+    loop's (plain correlator) packed rows and carry bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    dev = torch.device("cuda", 0)
+    kw = {"gps": {}, "e1_pilot": dict(signal="1B", pilot=True),
+          "e5a_pilot": dict(signal="5X", pilot=True)}[case]
+    c = scenario.tracking_handoff_case(dev, **kw)
+    cfg, state = c["cfg"], c["state"]
+    chunk = torch.from_numpy(c["chunk"]).to(dev)
+    tables = torch.from_numpy(c["tables"]).to(dev)
+    before = tk.launches
+    carry, packed = tk.track_chunk_carry(cfg, chunk, tk.pack_carry(state),
+                                         tables, cluster=m)
+    assert tk.launches == before + 1
+    ref_state, out = ttrk.track_chunk(
+        cfg, chunk, state, tables, correlate=correlator.epoch_correlate_plain)
+    ref = ttrk.pack_host_outputs(out, ref_state.loss_of_lock)
+    torch.cuda.synchronize()
+    assert torch.equal(packed.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(carry, tk.pack_carry(ref_state))
+
+
 def test_host_edits_on_the_packed_carry():
     """start_channel, stop_channel (the receiver's _drop_channel) and
     set_extension on the packed carry give pack() of the same edits on the
@@ -366,6 +450,49 @@ def _readings(seeds) -> None:
                   f"carry_worst={worst}", flush=True)
 
 
+def _profile(repeats: int = 3) -> None:
+    """Profile the eager loop (K2's plain version) on one chunk of the L5
+    handoff at 4 channels on the CPU, one thread: the host operations per
+    step (every operator torch.profiler records, nested ones included), the
+    ten most frequent, the chunk's seconds (the least of ``repeats`` runs),
+    and its seconds with the correlator replaced by zeros (the rest of the
+    loop)."""
+    import collections
+    import time
+
+    c = scenario.tracking_handoff_case("cpu", signal="L5", n_channels=4)
+    args = (c["cfg"], torch.from_numpy(c["chunk"]), c["state"],
+            torch.from_numpy(c["tables"]))
+    steps = c["cfg"].n_steps
+    zeros = torch.zeros((4, c["cfg"].n_taps, 2))
+
+    def least(**kw) -> float:
+        ttrk.track_chunk(*args, **kw)                     # warm-up
+        t = float("inf")
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            ttrk.track_chunk(*args, **kw)
+            t = min(t, time.perf_counter() - t0)
+        return t
+
+    best = least()
+    rest = least(correlate=lambda *a, **k: zeros)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        ttrk.track_chunk(*args)
+    counts = collections.Counter({e.key: e.count
+                                  for e in prof.key_averages()})
+    print(f"eager loop, L5 C=4, {steps} steps: chunk_s={best:.4f} "
+          f"without_correlator_s={rest:.4f} "
+          f"ops_per_step={sum(counts.values()) / steps:.1f}")
+    for name, n in counts.most_common(10):
+        print(f"  {name}: {n / steps:.1f} per step")
+
+
 if __name__ == "__main__":
     import sys
-    _readings([int(a) for a in sys.argv[1:]] or [1, 2, 3, 4, 5, 6, 7, 8, 11])
+    if sys.argv[1:] == ["--profile"]:
+        _profile()
+    else:
+        _readings([int(a) for a in sys.argv[1:]]
+                  or [1, 2, 3, 4, 5, 6, 7, 8, 11])

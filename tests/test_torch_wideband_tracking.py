@@ -15,19 +15,25 @@ correlator sums (the prompt and every tap, unturned) as complex values,
 |dz| <= 1e-4 |z| + 1e-4: tests/test_torch_galileo_tracking.py's
 tolerances. Two carry fields depart from that file's rules:
 
-* ``prev_prompt`` is a correlator sum (the last window's prompt) and is
-  held as one, as complex values, the rule that file applies to
-  ``acc_corr``; component by component it misses by up to 87x on L5,
+* ``prev_prompt`` is a correlator sum (the last window's prompt). It is
+  compared component by component, the rule of that file, where that
+  holds (L5 with the pilot), and as a complex value, the rule that file
+  applies to ``acc_corr``, in the other cases: component by component it
+  misses by up to 87x on L5, 2.9x on E5a and 1.7x on E5a with the pilot,
   where its Q is near zero and carries the whole sum's rounding.
 * The C/N0 moments ``cn0.ema_i2_minus_q2`` and ``cn0.ema_abs_i`` are held
   to the bounds the sums' rounding gives them (``moment_bounds`` of
   tests/test_torch_galileo_tracking.py, derived in
   tests/test_torch_tracking.py, with e = 1e-4: the prompts here meet the
-  sums' bound unturned). Fed JAX's own sums, the port's moments keep JAX's bits in all six cases, so no order
-  of operations is left to write out. Both are moments of the prompt,
-  whose rounding is relative to |P|, not to I^2 - Q^2 or |I|: L5's
-  channel 3 reads |I| 1.05e-4 off relative to itself, past rtol / atol
-  1e-4 (1.05 of it).
+  sums' bound unturned). Both are moments of the prompt, whose rounding is
+  relative to |P|, not to I^2 - Q^2 or |I|: L5's channel 3 reads |I|
+  1.05e-4 off relative to itself, past rtol / atol 1e-4 (1.05 of it).
+
+Fed JAX's own correlator sums (``correlate=``), the port's loop keeps
+JAX's bits in all six cases, ``prev_prompt`` and both moments included
+(``test_fed_jax_sums_keep_jax_bits``): their difference is the sums'
+summation order alone, which the port keeps as the kernels sum, so no order
+of operations is left to write out and the two bounds stay.
 
 The ``gpu`` test holds K2 to the eager loop on the card bit for bit at
 these shapes.
@@ -44,7 +50,9 @@ from gnss_sdr_tpu_torch.utils import scenario
 
 from test_torch_galileo_tracking import (FLOAT_FIELDS, INT_FIELDS,
                                          _complex_close, _jax_cfg,
-                                         _jax_state, moment_bounds)
+                                         _jax_state,
+                                         assert_fed_jax_sums_keep_bits,
+                                         moment_bounds, run_fed_jax_sums)
 
 torch.set_num_threads(1)   # one thread per xdist worker
 
@@ -56,6 +64,8 @@ CASES = {"l5": dict(signal="L5"),
          "e5a_pilot": dict(signal="5X", pilot=True)}
 # (n_max, secondary code length) per signal
 SHAPES = {"L5": (11064, 10), "5X": (12064, 20)}
+# the cases whose prev_prompt is held as a complex value (docstring)
+PREV_PROMPT_COMPLEX = ("l5", "e5a", "e5a_cs20", "e5a_pilot")
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
@@ -73,7 +83,7 @@ def open_loop(request):
         torch.from_numpy(c["tables"]),
         None if sec is None else torch.from_numpy(sec))
     return dict(name=request.param, cfg=cfg, jst=jst, jout=jout, tst=tst,
-                tout=tout)
+                tout=tout, case=c)
 
 
 def test_open_loop_matches_jax(open_loop):
@@ -99,10 +109,12 @@ def test_open_loop_matches_jax(open_loop):
         tout.prompt.numpy(),
         tout.correlators.numpy()[:, :, cfg.data_prompt_index])
     jst, tst = open_loop["jst"], ttrk.state_to_numpy(open_loop["tst"])
-    for name in ("acc_corr", "prev_prompt"):
+    complex_fields = ("acc_corr",) + (
+        ("prev_prompt",) if open_loop["name"] in PREV_PROMPT_COMPLEX else ())
+    for name in complex_fields:
         _complex_close(np.asarray(getattr(jst, name)), getattr(tst, name))
     for name in ttrk.TrackingState._fields:
-        if name in ("acc_corr", "prev_prompt"):
+        if name in complex_fields:
             continue
         a, b = getattr(jst, name), getattr(tst, name)
         for field, x, y in (zip(a._fields, a, b)
@@ -121,6 +133,12 @@ def test_open_loop_matches_jax(open_loop):
     if CASES[open_loop["name"]].get("extended"):
         assert tst.ext_n[[1, 3]].tolist() == [sec_len, sec_len]
         assert tst.sec_len[3] == sec_len and tst.sec_len[1] == 0
+
+
+def test_fed_jax_sums_keep_jax_bits(open_loop):
+    tst, tout = run_fed_jax_sums(open_loop)
+    assert_fed_jax_sums_keep_bits(open_loop["jst"], open_loop["jout"], tst,
+                                  tout)
 
 
 @pytest.mark.parametrize("signal", ["L5", "5X"])
