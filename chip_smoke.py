@@ -32,8 +32,13 @@ Phases, one line each, with their seconds:
             4096-sample tiles per epoch): (h) GPS L5I at 11 MSps, C=4, (i)
             L5Q pilot tracking with the NH10 wipe after the extension, (j)
             Galileo E5a-I at 12 MSps, C=4, with the CS20 wipe, (k) E5a-Q
-            pilot tracking; after the main, hybrid, l5 and e5a phases, the
-            receivers' final carries (channels in NARROW_TRACK). Packed
+            pilot tracking; (l) GPS L2C at 2 MSps (20 ms epochs of 40,000
+            samples, n_max 40,064, 7 steps a chunk), C=5, over two
+            consecutive dispatches, the second from the carry K2 wrote;
+            (m) BeiDou B1I at 4 MSps with the NH20 wipe after the
+            extension; after the main, hybrid, l5, e5a, dynamic, l2c and
+            b1i phases, the receivers' final carries (channels in
+            NARROW_TRACK). Packed
             int32 columns, valid, the loss flag and the carry's int / bool
             fields equal; float columns and float carry fields within rtol
             1e-4 / atol 1e-4; the prompt
@@ -41,14 +46,17 @@ Phases, one line each, with their seconds:
             tolerances); each case runs at the cluster size the wrapper
             picks. Then GPS L1, the E1 pilot and the E5a pilot handoffs at
             every cluster size m = 1, 2, 4, 8, forced: bit for bit the
-            plain version's packed rows and carry, or the phase fails.
+            plain version's packed rows and carry, or the phase fails; the
+            same at the L2C shape (C=5).
 5. timing   K1 and its plain version at shapes (a) and (b), CUDA events over
             500 launches each after a warm-up, in turns (plain, kernel,
             kernel, plain), beside the bound computed from the shapes; K2
             per 100 ms chunk at the GPS shape (C=8 and C=128), the E1
             pilot shape (C=6 and C=128), GPS L5 (C=4 and C=128) and the
             E5a pilot shape (C=4 and C=128), GPS L5 with the L5Q pilot
-            (C=6) and E5a data-only (C=4): at the chosen cluster size and
+            (C=6), E5a data-only (C=4), GPS L2C (C=5 and C=128), BeiDou
+            B1I (C=4 and C=128) and GPS L1 at the dynamic receiver's C=6:
+            at the chosen cluster size and
             at m=1 in turns, then every m, and the step split into its
             parts (ring fill with the step's barriers, accumulate, reduce,
             scalar update) by the timing builds that leave parts out, in
@@ -98,6 +106,24 @@ Phases, one line each, with their seconds:
             shipped conf/gps_l5.conf (L5Q pilot tracking) and
             conf/galileo_e5a.conf (noncoherent I/Q CAF acquisition) through
             the CLI on that capture (phase_cli_wideband).
+11. dynamic tests/test_e2e_dynamic.py's moving receiver ((12, -5, 0) m/s
+            ENU, 28 s of 6 GPS L1 C/A satellites at 2 MSps, 47 dB-Hz, seed
+            41, 6 channels): position RMSE < 10 m, velocity RMSE < 5 m/s,
+            the last 5 fixes' speed within 2 m/s, the motion traversed
+            within 25 % / 5 m; K2 on the final carry.
+12. l2c     tests/test_e2e_l2c.py's GPS L2C scenario (5 satellites, 58 s
+            at 2 MSps, 45 dB-Hz, seed 77, 5 channels, its loop
+            bandwidths): all tracked, >= 5 ephemerides, the last 20 fixes
+            within 2D < 10 m / 3D < 20 m; K2 on the final carry; the
+            shipped conf/gps_l2c.conf through the CLI on the first 8 s.
+13. b1i     tests/test_e2e_beidou.py's BeiDou B1I scenario (4 MEO / IGSO
+            satellites, 30 s at 4 MSps, 48 dB-Hz, seed 91): all tracked,
+            >= 4 ephemerides, the last 5 fixes within 2D < 2 m / 3D < 5 m;
+            K2 on the final carry; conf/beidou_b1i.conf through the CLI on
+            the first 6 s. Each of phases 11-13 launches K2 once per
+            tracking dispatch and K1 never. The CPU rehearsal runs 3 s of
+            each without the checks or the CLI (the L2C conf's 32-PRN,
+            321-bin search of 80,000-sample windows is a card's work).
 
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit, then the result line. Float32 matrix products run in
@@ -516,7 +542,62 @@ K2_CASES = (("plain", {}), ("extended", dict(extended=True)),
             ("i_l5_pilot_nh10", dict(signal="L5", pilot=True,
                                      extended=True)),
             ("j_e5a_cs20", dict(signal="5X", n_channels=4, extended=True)),
-            ("k_e5a_pilot", dict(signal="5X", pilot=True)))
+            ("k_e5a_pilot", dict(signal="5X", pilot=True)),
+            # (m) BeiDou B1I at 4 MSps (n_max 4064, 2046-entry tables) with
+            # the NH20 wipe over one secondary period after the extension;
+            # GPS L2C's 20 ms windows run in phase_k2_two_dispatches
+            ("m_b1i_nh20", dict(signal="B1", extended=True)))
+
+
+def phase_k2_two_dispatches(name: str, device, **kw) -> dict:
+    """Case (l): two consecutive one-chunk dispatches, the carry K2 wrote
+    for the first fed to the second (the receiver's chunk boundary: each
+    dispatch's window is its chunk plus the halo, the next chunk starts
+    chunk_len later), against the eager loop with the plain correlator
+    doing the same; at GPS L2C's shape (2 MSps, 20 ms code epochs of
+    40,000 samples, n_max 40,064, 7 steps a chunk, the last window of a
+    chunk reaching into its halo) on 5 channels."""
+    from gnss_sdr_tpu_torch.ops import correlator
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    t0 = time.perf_counter()
+    cfg2, chunk, state, tables, sec = k2_case(device, chunks=2, **kw)
+    n = cfg2.chunk_len // 2
+    cfg = dataclasses.replace(cfg2, chunk_len=n, n_steps=int(
+        np.ceil(n / cfg2.samples_per_code)) + 2)
+    worst, bitwise, ks, rs = None, True, state, state
+    before = tk.launches
+    for i in range(2):
+        part = chunk[i * n: i * n + n + cfg.n_max]
+        ks, packed = trk.track_chunk_packed(cfg, part, ks, tables, sec)
+        rs, out = trk.track_chunk(cfg, part, rs, tables, sec,
+                                  correlate=correlator.epoch_correlate_plain)
+        ref = trk.pack_host_outputs(out, rs.loss_of_lock)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        r = k2_compare(packed, ref, ks, rs)
+        if r["bad"]:
+            raise SystemExit(f"K2 disagrees with its plain version at {name}"
+                             f", dispatch {i}: {r['bad']}")
+        bitwise = bitwise and torch.equal(
+            packed.view(torch.int32), ref.view(torch.int32)) and torch.equal(
+            tk.pack_carry(ks), tk.pack_carry(rs))
+        worst = _worst(worst, r)
+    launched = tk.launches - before
+    _line("K2", t0, case=name, C=int(tables.shape[0]), steps=cfg.n_steps,
+          n_max=cfg.n_max, dispatches=2,
+          launches=launched if device.type == "cuda" else 0,
+          end_states=np.bincount(trk.as_state(ks).state.cpu().numpy(),
+                                 minlength=4).tolist(),
+          max_abs_err=f"{worst['max_abs_err']:.3e}",
+          float_tol_ratio=f"{worst['float_tol_ratio']:.3e}",
+          prompt_tol_ratio=f"{worst['prompt_tol_ratio']:.3e}",
+          bitwise=bitwise, ok=True)
+    if device.type == "cuda" and launched != 2:
+        raise SystemExit(f"{name}: K2 launched {launched} times for 2 "
+                         f"dispatches")
+    return worst
 
 
 def phase_k2(device, with_k16: bool) -> dict:
@@ -526,13 +607,16 @@ def phase_k2(device, with_k16: bool) -> dict:
             continue
         worst = _worst(worst, phase_k2_case(name, device,
                                             *k2_case(device, **kw)))
+    worst = _worst(worst, phase_k2_two_dispatches(
+        "l_l2c_two_dispatches", device, signal="2S", n_channels=5))
     return _worst(worst, phase_k2_two_groups(device))
 
 
 # the forced cluster sizes' cases: GPS L1 C/A, the E1 pilot and the E5a
-# pilot handoffs (6 channels)
+# pilot handoffs (6 channels), and GPS L2C's 40,064-sample windows (5)
 K2_CLUSTER_CASES = (("plain", {}), ("f_e1_pilot", dict(signal="1B", pilot=True)),
-                    ("k_e5a_pilot", dict(signal="5X", pilot=True)))
+                    ("k_e5a_pilot", dict(signal="5X", pilot=True)),
+                    ("l_l2c", dict(signal="2S", n_channels=5)))
 
 
 def phase_k2_clusters(device) -> None:
@@ -607,7 +691,16 @@ K2_TIMING = (("k2_c8", dict(n_channels=8)), ("k2_c128", dict(n_channels=128)),
              # the shipped L5 conf's pilot tracking on its 6 channels, and
              # the in-process e5a receiver's data-only tracking
              ("k2_l5p_c6", dict(signal="L5", pilot=True, n_channels=6)),
-             ("k2_e5a_c4", dict(signal="5X", n_channels=4)))
+             ("k2_e5a_c4", dict(signal="5X", n_channels=4)),
+             # GPS L2C at 2 MSps (7 steps of 40,000 samples a chunk) and
+             # BeiDou B1I at 4 MSps (102 steps of 4,000), at the receivers'
+             # channel counts and at 128
+             ("k2_l2c_c5", dict(signal="2S", n_channels=5)),
+             ("k2_l2c_c128", dict(signal="2S", n_channels=128)),
+             ("k2_b1i_c4", dict(signal="B1", n_channels=4)),
+             ("k2_b1i_c128", dict(signal="B1", n_channels=128)),
+             # the dynamic receiver's 6 GPS L1 C/A channels
+             ("k2_dyn_c6", dict(n_channels=6)))
 
 # K2 of another checkout (the parent commit's, say), timed at the same
 # shapes in a process of its own: the kernel's own time per launch, in ms,
@@ -619,7 +712,10 @@ from gnss_sdr_tpu_torch.utils import scenario
 dev = torch.device("cuda", 0)
 out = {}
 for name, kw in json.loads(sys.argv[1]):
-    c = scenario.tracking_handoff_case(dev, **kw)
+    try:
+        c = scenario.tracking_handoff_case(dev, **kw)
+    except (KeyError, ValueError):
+        continue                  # a signal that checkout has not ported
     chunk = torch.from_numpy(c["chunk"]).to(dev)
     tables = torch.from_numpy(c["tables"]).to(dev)
     carry = tk.pack_carry(c["state"])
@@ -773,6 +869,8 @@ def phase_timing_k2(device, smi: str, baseline=None) -> dict:
     if baseline:
         base_b = _baseline_times(baseline)
         for name, _ in K2_TIMING:
+            if name not in base_a:
+                continue
             a, b = base_a[name], base_b[name]
             results[name]["baseline_ms"] = (sum(a) + sum(b)) / 4
             _line("timing", time.perf_counter(), shape=name,
@@ -1419,55 +1517,19 @@ def phase_wideband(device, cap: dict, check: bool) -> dict:
     mean of the last 5 fixes within 2D < 2 m / 3D < 5 m, one K2 launch per
     tracking dispatch and no K1 launch; the host seconds of each stage and
     the real-time factor."""
-    from gnss_sdr_tpu_torch.io.sources import ArraySignalSource
-    from gnss_sdr_tpu_torch.ops import correlator
-    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
-    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
-
     sc, x, signal = cap["sc"], cap["x"], cap["signal"]
     phase = "l5" if signal == "L5" else "e5a"
     w = WIDE[signal]
-    t0 = time.perf_counter()
-    cfg = ReceiverConfig(signal=signal, fs=w["fs"], prns=tuple(sc.prns),
-                         chunk_ms=100, pvt_apply_tropo=False,
-                         pvt_apply_iono=False, **w["rx"])
-    rx = Receiver(cfg, device=device)
-    spent: dict = {}
-    _timed(rx, ("_upload", "_run_acquisition", "_dispatch_tracking",
-                "_finish_tracking", "_consume_tracking", "_run_observables"),
-           spent)
-    correlator.launches = 0
-    tk.launches = 0
-    rx.run_source(ArraySignalSource(x, w["fs"]))
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    k1, k2 = correlator.launches, tk.launches
-    wall = time.perf_counter() - t0
-    dur = len(x) / w["fs"]
-    tracked = sorted(rx.tracked_prns())
-    g = rx.groups[0]
-    _line(phase, t0, step="receiver", wall_s=f"{wall:.3f}",
-          realtime_x=f"{dur / wall:.3f}", stream_s=f"{dur:.3f}",
-          tracked=tracked, scenario=sorted(sc.prns),
-          steps_per_chunk=g.trk_cfg.n_steps, n_max=g.trk_cfg.n_max,
-          dispatches=rx.tracking_dispatches, scan_steps=rx.scan_steps,
-          k2_launches=k2, k1_launches=k1)
-    _breakdown(phase, t0, spent, rx)
-    bad = []
-    if check and tracked != sorted(sc.prns):
-        bad.append(f"tracked {tracked}")
-    if device.type == "cuda" and not (k2 == rx.tracking_dispatches > 0
-                                      and k1 == 0):
-        bad.append(f"K2 launches {k2} != dispatches "
-                   f"{rx.tracking_dispatches}, or K1 launched {k1} times")
+    run = _receiver_run(device, phase, sc, x, w["fs"], signal=signal,
+                        **w["rx"])
+    rx, bad = run["rx"], []
     if check:
-        ephs = rx.ephemerides
-        wrong = [prn for (_, prn), e in ephs.items()
-                 if abs(e.sqrt_a - sc.ephemerides[prn].sqrt_a) >= 1e-4
-                 or e.toe != sc.ephemerides[prn].toe]
+        if run["tracked"] != sorted(sc.prns):
+            bad.append(f"tracked {run['tracked']}")
+        ephs, wrong = rx.ephemerides, _eph_mismatch(rx, sc, 1e-4)
         err = (_fix_error(rx.fixes[-5:], sc) if len(rx.fixes) >= 3
                else (np.inf, np.inf))
-        _line(phase, t0, step="checks", ephemerides=len(ephs),
+        _line(phase, run["t0"], step="checks", ephemerides=len(ephs),
               eph_mismatch=wrong, fixes=len(rx.fixes),
               err_2d_m=f"{err[0]:.3f}", err_3d_m=f"{err[1]:.3f}")
         if len(ephs) < 4 or wrong:
@@ -1476,7 +1538,7 @@ def phase_wideband(device, cap: dict, check: bool) -> dict:
             bad.append(f"fix error {err}")
     if bad:
         raise SystemExit(f"{phase} phase failed its checks: {bad}")
-    return dict(rx=rx, k2_launches=k2, k1_launches=k1, wall_s=wall)
+    return run
 
 
 def phase_cli_wideband(device, cap: dict, run: dict, check: bool) -> int:
@@ -1568,6 +1630,222 @@ def run_wideband(device, signal: str, check: bool,
                 k1_launches=run["k1_launches"], cli_k2=cli_k2, k2_err=err)
 
 
+# ------------------------------------------------- dynamic, l2c and b1i ---
+DYN_VEL_ENU = (12.0, -5.0, 0.0)       # tests/test_e2e_dynamic.py
+L2C_FS, B1I_FS = 2.0e6, 4.0e6
+
+
+def _receiver_run(device, phase: str, sc, x: np.ndarray, fs: float,
+                  **cfg_kw) -> dict:
+    """One in-process receiver on ``x`` with the scenario's PRNs as its
+    pool, the solver without an atmosphere (the simulation has none): the
+    receiver line (wall, real-time factor, tracked PRNs, dispatches, K1 /
+    K2 launches) and the host seconds of each stage. Fails unless every
+    tracking dispatch launched K2 once and K1 never ran (on the card)."""
+    from gnss_sdr_tpu_torch.io.sources import ArraySignalSource
+    from gnss_sdr_tpu_torch.ops import correlator
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    t0 = time.perf_counter()
+    cfg = ReceiverConfig(fs=fs, prns=tuple(sc.prns), chunk_ms=100,
+                         pvt_apply_tropo=False, pvt_apply_iono=False,
+                         **cfg_kw)
+    rx = Receiver(cfg, device=device)
+    spent: dict = {}
+    _timed(rx, ("_upload", "_run_acquisition", "_dispatch_tracking",
+                "_finish_tracking", "_consume_tracking", "_run_observables"),
+           spent)
+    correlator.launches = 0
+    tk.launches = 0
+    rx.run_source(ArraySignalSource(x, fs))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    k1, k2 = correlator.launches, tk.launches
+    wall = time.perf_counter() - t0
+    dur = len(x) / fs
+    g = rx.groups[0]
+    tracked = sorted(rx.tracked_prns())
+    _line(phase, t0, step="receiver", wall_s=f"{wall:.3f}",
+          realtime_x=f"{dur / wall:.3f}", stream_s=f"{dur:.3f}",
+          tracked=tracked, scenario=sorted(sc.prns),
+          steps_per_chunk=g.trk_cfg.n_steps, n_max=g.trk_cfg.n_max,
+          dispatches=rx.tracking_dispatches, scan_steps=rx.scan_steps,
+          k2_launches=k2, k1_launches=k1)
+    _breakdown(phase, t0, spent, rx)
+    if device.type == "cuda" and not (k2 == rx.tracking_dispatches > 0
+                                      and k1 == 0):
+        raise SystemExit(f"{phase}: K2 launches {k2} != dispatches "
+                         f"{rx.tracking_dispatches}, or K1 launched {k1} "
+                         f"times")
+    return dict(rx=rx, k2_launches=k2, k1_launches=k1, wall_s=wall,
+                tracked=tracked, t0=t0)
+
+
+def _eph_mismatch(rx, sc, tol: float) -> list:
+    return [prn for (_, prn), e in rx.ephemerides.items()
+            if abs(e.sqrt_a - sc.ephemerides[prn].sqrt_a) >= tol
+            or e.toe != sc.ephemerides[prn].toe]
+
+
+def phase_dynamic(device, duration_s: float, check: bool) -> dict:
+    """tests/test_e2e_dynamic.py on the card: a receiver moving at
+    (12, -5, 0) m/s ENU through a 28 s, 6-satellite, 47 dB-Hz GPS L1 C/A
+    scenario at 2 MSps (seed 41), 6 channels. Its three tests' checks: the
+    3D position RMSE of every fix against the truth trajectory < 10 m, the
+    3D velocity RMSE < 5 m/s, the mean speed of the last 5 fixes within
+    2 m/s of the truth, and the first-to-last fix displacement within 25 %
+    (or 5 m) of |v| dt; every satellite tracked."""
+    from gnss_sdr_tpu_torch.utils import scenario
+
+    t0 = time.perf_counter()
+    sc = scenario.build_gps_l1_scenario(duration_s=duration_s, n_sats=6,
+                                        cn0_dbhz=47.0, fs=FS,
+                                        vel_enu=DYN_VEL_ENU)
+    x = sc.generate(seed=41, device=device)
+    _line("dynamic", t0, step="generate", samples=len(x),
+          prns=sorted(sc.prns), speed_m_s=float(np.linalg.norm(
+              sc.rcv_vel_ecef)))
+    run = _receiver_run(device, "dynamic", sc, x, FS, signal="1C",
+                        n_channels=6, acq_doppler_max_hz=5000.0,
+                        acq_doppler_step_hz=250.0)
+    rx = run["rx"]
+    bad = []
+    if check:
+        fixes = rx.fixes
+        if len(fixes) < 5:
+            raise SystemExit(f"dynamic: only {len(fixes)} fixes")
+        pos = [np.linalg.norm(f.pos_ecef - sc.rcv_pos_at(f.tow_s - sc.t0_gps))
+               for f in fixes]
+        vel = [np.linalg.norm(f.vel_ecef - sc.rcv_vel_ecef) for f in fixes]
+        pos_rmse = float(np.sqrt(np.mean(np.square(pos))))
+        vel_rmse = float(np.sqrt(np.mean(np.square(vel))))
+        v_true = float(np.linalg.norm(sc.rcv_vel_ecef))
+        speed = float(np.mean([np.linalg.norm(f.vel_ecef)
+                               for f in fixes[-5:]]))
+        dt = fixes[-1].tow_s - fixes[0].tow_s
+        moved = float(np.linalg.norm(fixes[-1].pos_ecef - fixes[0].pos_ecef))
+        expect = v_true * dt
+        _line("dynamic", run["t0"], step="checks", fixes=len(fixes),
+              pos_rmse_m=f"{pos_rmse:.3f}", vel_rmse_m_s=f"{vel_rmse:.3f}",
+              last5_speed_m_s=f"{speed:.3f}", true_speed_m_s=f"{v_true:.3f}",
+              moved_m=f"{moved:.3f}", expected_m=f"{expect:.3f}",
+              fix_span_s=f"{dt:.3f}")
+        for name, ok in (
+                ("tracked", run["tracked"] == sorted(sc.prns)),
+                ("position RMSE", pos_rmse < 10.0),
+                ("velocity RMSE", vel_rmse < 5.0),
+                ("speed", abs(speed - v_true) <= 2.0),
+                ("motion", dt > 2.0
+                 and abs(moved - expect) <= max(0.25 * expect, 5.0))):
+            if not ok:
+                bad.append(name)
+    if bad:
+        raise SystemExit(f"dynamic phase failed its checks: {bad}")
+    return dict(run, sc=sc, x=x)
+
+
+# tests/test_e2e_l2c.py's and tests/test_e2e_beidou.py's scenarios, receiver
+# settings and checks: (scenario function, its arguments, seed, receiver
+# settings, sqrt_a tolerance, least ephemerides, fixes averaged, least
+# fixes, 2D and 3D limits in m; L2C's 511.5 kcps chip is 586 m, hence its
+# budget)
+SIGNAL_RUNS = {
+    "l2c": ("build_gps_l2c_scenario",
+            dict(n_sats=5, cn0_dbhz=45.0, fs=L2C_FS), 77,
+            dict(signal="2S", n_channels=5, acq_doppler_max_hz=4000.0,
+                 acq_doppler_step_hz=25.0, pll_bw_hz=12.0, dll_bw_hz=0.75,
+                 fll_bw_hz=5.0, pll_bw_narrow_hz=8.0, dll_bw_narrow_hz=0.5),
+            1e-3, 5, 20, 5, 10.0, 20.0),
+    "b1i": ("build_beidou_b1i_scenario",
+            dict(n_sats=4, cn0_dbhz=48.0, fs=B1I_FS), 91,
+            dict(signal="B1", n_channels=4, acq_doppler_max_hz=5000.0,
+                 acq_doppler_step_hz=250.0),
+            1e-4, 4, 5, 3, 2.0, 5.0),
+}
+
+
+def phase_signal(name: str, device, duration_s: float, check: bool) -> dict:
+    """``l2c``: tests/test_e2e_l2c.py on the card, 5 GPS L2 CM satellites
+    with CNAV (58 s at 2 MSps, 45 dB-Hz, seed 77), 5 channels, that test's
+    loop bandwidths; ``b1i``: tests/test_e2e_beidou.py, 4 BeiDou B1I MEO /
+    IGSO satellites with D1 under NH20 (30 s at 4 MSps, 48 dB-Hz, seed 91),
+    4 channels. Every satellite tracked, at least 5 / 4 ephemerides equal
+    to the truth (sqrt_a within 1e-3 / 1e-4, toe exact), and at least 5 / 3
+    fixes whose last 20 / 5 average within 2D < 10 m / 3D < 20 m (L2C) or
+    2D < 2 m / 3D < 5 m (B1I)."""
+    from gnss_sdr_tpu_torch.utils import scenario
+
+    (make, kw, seed, rx_kw, tol, n_eph, n_avg, n_fix, lim_2d,
+     lim_3d) = SIGNAL_RUNS[name]
+    t0 = time.perf_counter()
+    sc = getattr(scenario, make)(duration_s=duration_s, **kw)
+    x = sc.generate(seed=seed, device=device)
+    _line(name, t0, step="generate", samples=len(x), prns=sorted(sc.prns))
+    run = _receiver_run(device, name, sc, x, kw["fs"], **rx_kw)
+    if check:
+        rx = run["rx"]
+        wrong = _eph_mismatch(rx, sc, tol)
+        err = (_fix_error(rx.fixes[-n_avg:], sc) if len(rx.fixes) >= n_fix
+               else (np.inf, np.inf))
+        _line(name, run["t0"], step="checks",
+              ephemerides=len(rx.ephemerides), eph_mismatch=wrong,
+              fixes=len(rx.fixes), err_2d_m=f"{err[0]:.3f}",
+              err_3d_m=f"{err[1]:.3f}")
+        bad = [what for what, ok in (
+            ("tracked", run["tracked"] == sorted(sc.prns)),
+            ("ephemerides", len(rx.ephemerides) >= n_eph and not wrong),
+            ("fix", err[0] < lim_2d and err[1] < lim_3d)) if not ok]
+        if bad:
+            raise SystemExit(f"{name} phase failed its checks: {bad}")
+    return dict(run, sc=sc, x=x)
+
+
+def phase_cli_shipped(device, run: dict, conf_name: str, fs: float,
+                      seconds: float) -> int:
+    """The shipped ``conf_name`` run by the CLI on the first ``seconds`` of
+    a phase's capture written as ishort (its capture path and item type
+    replaced, PVT.trop_model / iono_model OFF, ``--max_chunks``): exit 0, a
+    device line naming the platform, every scenario PRN tracking, one K2
+    launch per dispatch and no K1 launch. Returns the CLI's K2 launches."""
+    platform = "cuda" if device.type == "cuda" else "cpu"
+    sc = run["sc"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        _write_ishort(tmp / "capture.ishort", run["x"][: int(seconds * fs)])
+        lines = []
+        for ln in (ROOT / "conf" / conf_name).read_text().splitlines():
+            if ln.startswith("SignalSource.filename="):
+                ln = f"SignalSource.filename={tmp / 'capture.ishort'}"
+            elif ln.startswith("SignalSource.item_type="):
+                ln = "SignalSource.item_type=ishort"
+            lines.append(ln)
+        lines += ["PVT.trop_model=OFF", "PVT.iono_model=OFF"]
+        conf = tmp / "rx.conf"
+        conf.write_text("\n".join(lines) + "\n")
+        t1 = time.perf_counter()
+        stdout, stderr = _run_cli(conf, platform, "--max_chunks",
+                                  str(int(seconds * 10)))
+        cli_s = time.perf_counter() - t1
+        got = _summary(stdout)
+        _line("cli", t0, run=conf_name.split(".")[0],
+              seconds_of_capture=seconds, cli_seconds=f"{cli_s:.3f}",
+              tracked=got["tracked"],
+              scenario=sorted(sc.prns), tracking_dispatches=got["dispatches"],
+              k2_launches=got["k2"], k1_launches=got["k1"],
+              device_line=f"device: {platform}" in stderr)
+        bad = [name for name, ok in (
+            ("device line", f"device: {platform}" in stderr),
+            ("tracked PRNs", set(sc.prns) <= set(got["tracked"])),
+            ("K1 launches", got["k1"] == 0),
+            ("K2 launches", device.type != "cuda"
+             or got["k2"] == got["dispatches"] > 0)) if not ok]
+        if bad:
+            raise SystemExit(f"{conf_name} CLI run failed its checks: {bad}")
+    return got["k2"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
@@ -1593,6 +1871,9 @@ def main(argv=None) -> int:
         phase_cli_hybrid(device, cap, hyb, check=False)
         for signal in ("L5", "5X"):
             run_wideband(device, signal, check=False, duration_s=1.0)
+        phase_dynamic(device, 3.0, check=False)
+        for name in SIGNAL_RUNS:
+            phase_signal(name, device, 3.0, check=False)
         return 0
 
     t0 = time.perf_counter()
@@ -1653,6 +1934,23 @@ def main(argv=None) -> int:
     for signal in ("L5", "5X"):
         wide[signal] = run_wideband(device, signal, check=True)
         k2_err = _worst(k2_err, wide[signal]["k2_err"])
+    # this slice's receivers: the moving GPS L1 receiver, GPS L2C and
+    # BeiDou B1I, each with K2 on its final carry; the shipped L2C and B1I
+    # confs through the CLI
+    runs = {}
+    for name, dur, conf, fs, cli_s in (
+            ("dynamic", 28.0, None, FS, 0.0),
+            ("l2c", 58.0, "gps_l2c.conf", L2C_FS, 8.0),
+            ("b1i", 30.0, "beidou_b1i.conf", B1I_FS, 6.0)):
+        run = (phase_dynamic(device, dur, check=True) if name == "dynamic"
+               else phase_signal(name, device, dur, check=True))
+        k2_err = _worst(k2_err, phase_k2_case(
+            f"{name}_final_carry", device,
+            *_final_carry_case(run["rx"], run["x"])))
+        runs[name] = dict(k2=run["k2_launches"], k1=run["k1_launches"],
+                          cli_k2=(phase_cli_shipped(device, run, conf, fs,
+                                                    cli_s) if conf else None))
+        del run
 
     a, k2c8 = timing["a_main_path"], timing_k2["k2_c8"]
     e1p = timing_k2["k2_e1p_c6"]
@@ -1667,6 +1965,7 @@ def main(argv=None) -> int:
         "hybrid_launches": hyb_k1,
         "l5_launches": wide["L5"]["k1_launches"],
         "e5a_launches": wide["5X"]["k1_launches"],
+        **{f"{name}_launches": r["k1"] for name, r in runs.items()},
         "max_abs_err": k1_err,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
@@ -1711,6 +2010,13 @@ def main(argv=None) -> int:
         "e5a_pilot_plain_ms": e5at["plain_ms"],
         "e5a_pilot_bound_ms": e5at["bound_ms"],
         "e5a_pilot_bound_by": e5at["bound_by"],
+        **{f"{name}_launches": r["k2"] for name, r in runs.items()},
+        "cli_l2c_launches": runs["l2c"]["cli_k2"],
+        "cli_b1i_launches": runs["b1i"]["cli_k2"],
+        **{f"{name}_{k}": timing_k2[shape][k]
+           for name, shape in (("dynamic", "k2_dyn_c6"), ("l2c", "k2_l2c_c5"),
+                               ("b1i", "k2_b1i_c4"))
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
     }]}
     print(json.dumps(record))

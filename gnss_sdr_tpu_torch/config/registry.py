@@ -221,23 +221,28 @@ def validate_conf(conf, plan: list) -> dict:
 
 
 # what the port has: every other name the tables accept raises in
-# check_ported (the GPS L1 C/A, GPS L5, Galileo E1-B and Galileo E5a
-# receivers with PCPS acquisition and E5a's noncoherent I/Q CAF variant,
+# check_ported (the GPS L1 C/A, GPS L2C, GPS L5, Galileo E1-B, Galileo E5a
+# and BeiDou B1I receivers with PCPS acquisition and E5a's noncoherent I/Q
+# CAF variant,
 # their file / array sources and the rate conditioner; observables and PVT
 # names all select the one engine)
 PORTED_ACQUISITIONS = {n for n, (sig, ov) in ACQUISITIONS.items()
                        if sig == "1C"
-                       or (sig in ("1B", "L5", "5X") and not ov)
+                       or (sig in ("1B", "2S", "L5", "5X", "B1") and not ov)
                        or ov == {"acq_variant": "e5a_caf"}}
 PORTED_TRACKINGS = {"GPS_L1_CA_DLL_PLL_Tracking",
                     "GPS_L1_CA_DLL_PLL_C_Aid_Tracking",
+                    "GPS_L2_M_DLL_PLL_Tracking",
                     "GPS_L5_DLL_PLL_Tracking", "GPS_L5i_DLL_PLL_Tracking",
                     "Galileo_E1_DLL_PLL_VEML_Tracking",
-                    "Galileo_E5a_DLL_PLL_Tracking"}
+                    "Galileo_E5a_DLL_PLL_Tracking",
+                    "BEIDOU_B1I_DLL_PLL_Tracking"}
 PORTED_TELEMETRIES = {"GPS_L1_CA_Telemetry_Decoder",
+                      "GPS_L2C_Telemetry_Decoder",
                       "GPS_L5_Telemetry_Decoder",
                       "Galileo_E1B_Telemetry_Decoder",
-                      "Galileo_E5a_Telemetry_Decoder"}
+                      "Galileo_E5a_Telemetry_Decoder",
+                      "BEIDOU_B1I_Telemetry_Decoder"}
 PORTED_SOURCES = {"File_Signal_Source"}
 PORTED_INPUT_FILTERS = {"Pass_Through", "Fir_Filter"}
 

@@ -1,12 +1,13 @@
 """PRN spreading-code generators for the ported signals: GPS L1 C/A (and
-the SBAS L1 codes of the same Gold family), GPS L5 I / Q, Galileo E1-B /
-E1-C with the E1-C secondary code CS25, and Galileo E5a-I / E5a-Q with the
-E5a-Q secondary codes CS100.
+the SBAS L1 codes of the same Gold family), GPS L2 CM, GPS L5 I / Q,
+Galileo E1-B / E1-C with the E1-C secondary code CS25, Galileo E5a-I /
+E5a-Q with the E5a-Q secondary codes CS100, and BeiDou B1I.
 
 Host-side (numpy): codes are generated once per channel assignment and shipped
 to the device as float32 tables; the hot path never regenerates them. The
-Galileo memory codes and the L5 XB advances come from the port's own copies
-of their ICD tables (``gnss_sdr_tpu_torch/data/icd_tables_{e1,e5a,l5}.json``).
+Galileo memory codes, the L2 CM initial registers, the L5 XB advances and
+the B1I phase assignments come from the port's own copies of their ICD
+tables (``gnss_sdr_tpu_torch/data/icd_tables_{e1,e5a,l2c,l5,b1i}.json``).
 The other signals' generators (and their ICD seed tables) are ported with the
 slices that track those signals.
 
@@ -28,7 +29,7 @@ _DATA = pathlib.Path(__file__).resolve().parent.parent / "data"
 @functools.lru_cache(maxsize=1)
 def _tables() -> dict:
     out = {}
-    for part in ("e1", "e5a", "l5"):
+    for part in ("e1", "e5a", "l2c", "l5", "b1i"):
         out.update(json.loads((_DATA / f"icd_tables_{part}.json").read_text()))
     return out
 
@@ -100,6 +101,28 @@ def _gps_ca_bits(prn: int) -> np.ndarray:
 def gps_l1ca_code(prn: int) -> np.ndarray:
     """1023-chip GPS C/A code, +/-1 float32."""
     return _bits_to_chips(_gps_ca_bits(prn))
+
+
+# ---------------------------------------------------------------------------
+# GPS L2 CM  (IS-GPS-200 sec. 3.3.3.2; modular 27-stage shift register)
+# ---------------------------------------------------------------------------
+
+_L2C_POLY_MASK = 0o445112474  # feedback mask, IS-GPS-200 Figure 3-12
+
+
+def _l2c_sequence(init_state: int, length: int) -> np.ndarray:
+    x = init_state
+    out = np.empty(length, dtype=np.uint8)
+    for i in range(length):
+        out[i] = x & 1
+        x = (x >> 1) ^ ((x & 1) * _L2C_POLY_MASK)
+    return out
+
+
+def gps_l2cm_code(prn: int) -> np.ndarray:
+    """10230-chip GPS L2 CM code, +/-1 float32 (IS-GPS-200 Table 3-Ib)."""
+    init = _tables()["gps_l2cm_init_reg"][prn - 1]
+    return _bits_to_chips(_l2c_sequence(init, 10230))
 
 
 # ---------------------------------------------------------------------------
@@ -202,14 +225,47 @@ def galileo_e5aq_secondary_code(prn: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# BeiDou B1I  (BDS ICD: Gold codes)
+# ---------------------------------------------------------------------------
+
+
+def beidou_b1i_code(prn: int) -> np.ndarray:
+    """2046-chip BeiDou B1I code, +/-1 float32.
+
+    G1/G2: 11-stage registers seeded 01010101010; G1 taps (1,7,8,9,10,11),
+    G2 taps (1,2,3,4,5,8,9,11); output = G1[11] xor (G2[p1] xor G2[p2]) with
+    per-PRN phase assignments from the BDS ICD.
+    """
+    t = _tables()
+    p1 = t["beidou_b1i_phase1"][prn - 1]
+    p2 = t["beidou_b1i_phase2"][prn - 1]
+    init = np.array([0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0], dtype=np.uint8)
+    n = 2046
+    g1 = init.copy()
+    g2 = init.copy()
+    out = np.empty(n, dtype=np.uint8)
+    for i in range(n):
+        out[i] = g1[10] ^ (g2[p1 - 1] ^ g2[p2 - 1])
+        fb1 = g1[0] ^ g1[6] ^ g1[7] ^ g1[8] ^ g1[9] ^ g1[10]
+        fb2 = g2[0] ^ g2[1] ^ g2[2] ^ g2[3] ^ g2[4] ^ g2[7] ^ g2[8] ^ g2[10]
+        g1[1:] = g1[:-1]
+        g1[0] = fb1
+        g2[1:] = g2[:-1]
+        g2[0] = fb2
+    return _bits_to_chips(out)
+
+
+# ---------------------------------------------------------------------------
 # Dispatch by signal code + sampling helpers
 # ---------------------------------------------------------------------------
 
 _GENERATORS = {
     "1C": lambda prn: gps_l1ca_code(prn),
+    "2S": lambda prn: gps_l2cm_code(prn),
     "L5": lambda prn: gps_l5i_code(prn),
     "1B": lambda prn: galileo_e1b_code(prn),
     "5X": lambda prn: galileo_e5ai_code(prn),
+    "B1": lambda prn: beidou_b1i_code(prn),
 }
 
 

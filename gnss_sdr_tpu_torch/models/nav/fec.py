@@ -57,22 +57,28 @@ def conv_encode(bits: np.ndarray, invert_g2: bool = False,
 
 def viterbi_decode(symbols: np.ndarray, n_bits: int,
                    invert_g2: bool = False) -> np.ndarray:
-    """Soft-decision Viterbi decode.
+    """Soft-decision Viterbi decode, of one symbol stream or of a batch.
 
     Args:
-      symbols: [2*(n_bits (+6 if flushed))] soft symbols; sign convention
-        +amp = bit 1, -amp = bit 0 (pass hard bits as +/-1).
+      symbols: [..., 2*(n_bits (+6 if flushed))] soft symbols; sign
+        convention +amp = bit 1, -amp = bit 0 (pass hard bits as +/-1).
+        Leading axes are a batch of streams, each decoded on its own with
+        the arithmetic of a single one (the frame searches decode many
+        candidate offsets at once).
       n_bits: number of information bits to return.
-    Returns 0/1 uint8 array of length n_bits.
+    Returns 0/1 uint8 array of shape [..., n_bits].
     """
     sym = np.asarray(symbols, np.float64)
-    n_steps = len(sym) // 2
+    batch = sym.shape[:-1]
+    sym = sym.reshape(-1, sym.shape[-1])
+    rows = np.arange(sym.shape[0])
+    n_steps = sym.shape[1] // 2
     out_tab = _output_tables(invert_g2).astype(np.float64) * 2.0 - 1.0
 
     # vectorized trellis: path metrics over 64 states. Uniform start metrics —
     # nav streams are decoded mid-stream (continuous FEC, unknown start state).
-    pm = np.zeros(NSTATES)
-    decisions = np.zeros((n_steps, NSTATES), np.uint8)
+    pm = np.zeros((len(rows), NSTATES))
+    decisions = np.zeros((n_steps, len(rows), NSTATES), np.uint8)
     states = np.arange(NSTATES)
     # transition: state s, input b -> next state ns = (s >> 1) | (b << 5)
     # equivalently: previous states of ns are p0 = (ns << 1) & 63 and p0 | 1
@@ -82,21 +88,21 @@ def viterbi_decode(symbols: np.ndarray, n_bits: int,
     b_of = states >> 5
     # branch metric uses the output of (prev_state, b)
     for t in range(n_steps):
-        s1, s2 = sym[2 * t], sym[2 * t + 1]
-        bm = out_tab[:, :, 0] * s1 + out_tab[:, :, 1] * s2  # [state, input]
-        m0 = pm[prev0] + bm[prev0, b_of]
-        m1 = pm[prev1] + bm[prev1, b_of]
+        s1, s2 = sym[:, 2 * t, None, None], sym[:, 2 * t + 1, None, None]
+        bm = out_tab[:, :, 0] * s1 + out_tab[:, :, 1] * s2  # [B, state, input]
+        m0 = pm[:, prev0] + bm[:, prev0, b_of]
+        m1 = pm[:, prev1] + bm[:, prev1, b_of]
         take1 = m1 > m0
         pm = np.where(take1, m1, m0)
         decisions[t] = take1
 
-    # traceback from best final state
-    s = int(np.argmax(pm))
-    bits = np.zeros(n_steps, np.uint8)
+    # traceback from each stream's best final state
+    s = np.argmax(pm, axis=1)
+    bits = np.zeros((len(rows), n_steps), np.uint8)
     for t in range(n_steps - 1, -1, -1):
-        bits[t] = s >> 5
-        s = (s << 1) & 63 | int(decisions[t, s])
-    return bits[:n_bits]
+        bits[:, t] = s >> 5
+        s = (s << 1) & 63 | decisions[t, rows, s]
+    return bits[:, :n_bits].reshape(*batch, n_bits)
 
 
 # ---------------------------------------------------------------------------

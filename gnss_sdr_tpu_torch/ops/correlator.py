@@ -97,17 +97,21 @@ def _f64(t: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=16)
 def _sample_axis(n_max: int, device) -> tuple:
-    """The window's sample index n < n_max as int32 (the mask), int64 (the
+    """The window's sample index n < n_max as int32 (the mask and the
     window gather) and float64 (the NCO sums), made once."""
-    n_i = torch.arange(n_max, dtype=torch.int64, device=device)
-    return n_i.to(torch.int32), n_i, n_i.to(torch.float64)
+    n_i = torch.arange(n_max, dtype=torch.int32, device=device)
+    return n_i, n_i.to(torch.float64)
 
 
-@functools.lru_cache(maxsize=16)
-def _component_base(tap_components: tuple, lt: int, device) -> torch.Tensor:
-    """Each tap's first entry in the flattened [C, G * Lt] tables, [K, 1]."""
-    return (torch.tensor(tap_components, dtype=torch.int64, device=device)
-            * lt)[:, None]
+@functools.lru_cache(maxsize=64)
+def _tap_base(n_ch: int, g: int, tap_components: tuple, row: int,
+              shift: int, device) -> torch.Tensor:
+    """Where channel c's tap k finds its table's entry 0 in the flattened
+    [C, G, row] tables, plus ``shift``: int32 [C, K, 1]."""
+    c = torch.arange(n_ch, dtype=torch.int32, device=device)[:, None, None]
+    k = torch.tensor(tap_components, dtype=torch.int32,
+                     device=device)[None, :, None]
+    return c * (g * row) + k * row + shift
 
 
 def epoch_correlate_plain(chunk: torch.Tensor, offsets: torch.Tensor,
@@ -138,56 +142,84 @@ def epoch_correlate_plain(chunk: torch.Tensor, offsets: torch.Tensor,
     against the JAX package sums in that same order."""
     dev = chunk.device
     n_len = chunk.shape[0]
-    n_i32, n_i, n64 = _sample_axis(n_max, dev)
-    zero, one = const(0.0, chunk), const(1.0, chunk)
-    # window gather, clamped like a JAX gather; masked past n_samples. A
-    # sample (I, Q) moves as one 8-byte word.
-    win_idx = (offsets.long()[:, None] + n_i[None, :]).clamp_(0, n_len - 1)
-    words = chunk.contiguous().view(torch.float64).reshape(-1)     # [L]
-    win = torch.take(words, win_idx).view(torch.float32).reshape(
-        *win_idx.shape, 2)                                         # [C, N, 2]
-    mask = torch.where(n_i32[None, :] < n_samples[:, None], one, zero)
+    n_i32, n64 = _sample_axis(n_max, dev)
+    # window gather, clamped like a JAX gather; masked past n_samples. I
+    # and Q are gathered into planes of their own (the wipe's products run
+    # on contiguous rows).
+    win_idx = (offsets[:, None] + n_i32[None, :]).clamp_(0, n_len - 1)
+    flat = chunk.contiguous().view(-1)                             # [2L]
+    wr = torch.index_select(flat, 0, win_idx.view(-1).mul_(2))
+    wi = torch.index_select(flat, 0, win_idx.view(-1).add_(1))
+    wr, wi = wr.view(win_idx.shape), wi.view(win_idx.shape)        # [C, N]
+    mask = (n_i32[None, :] < n_samples[:, None]).to(chunk.dtype)
 
-    # the carrier and code NCOs' product-sums (fma32) in one pass
-    nco = (torch.stack([carr_phase_steps, code_phase_steps]).double()[
-        :, :, None] * n64 + torch.stack([carr_phase_fracs, rem_code_phases]
-                                        ).double()[:, :, None]
-           ).to(torch.float32)                                     # [2, C, N]
+    # the carrier and code NCOs' product-sums (fma32) in one pass: in
+    # float64 the product of a float32 and an integer below 2^24 is exact,
+    # so addcmul's product-sum rounds once, as fma32's sum does
+    nco = torch.addcmul(
+        torch.stack([carr_phase_fracs, rem_code_phases]).double()[:, :, None],
+        torch.stack([carr_phase_steps, code_phase_steps]).double()[:, :, None],
+        n64).to(torch.float32)                                     # [2, C, N]
     ph, chips = nco[0], nco[1]
     # remainder(x, 1.0) as x - floor(x): the same bits but the sign of zero
     phase = ph - torch.floor(ph)
     arg = const(_TWO_PI, phase) * phase
     c = torch.cos(arg)
     s = torch.sin(arg)
-    wr = win[..., 0]
-    wi = win[..., 1]
     xr = (wr * c + wi * s) * mask
     xi = (wi * c - wr * s) * mask
 
-    idx_f = chips[:, None, :] + tap_offsets[None, :, None]
-    if table_rate != 1:
-        idx_f = idx_f * const(float(table_rate), idx_f)
-    lt = code_tables.shape[-1]
-    # the floor-mod of the integral float32 floor v, as v - Lt floor(v / Lt):
-    # for |v| < 2^24 (every tracking window's index is below 2 Lt) the
-    # rounded quotient is within 1/Lt of the true one and never crosses an
-    # integer, so this is exact, as int32's floor-mod is
-    fl = torch.floor(idx_f)
-    ltf = const(float(lt), fl)
-    idx = (fl - ltf * torch.floor(fl / ltf)).to(torch.int64)      # [C, K, N]
-    flat = code_tables.reshape(code_tables.shape[0], -1)           # [C, G*Lt]
-    if tap_components is not None:
-        idx = idx + _component_base(tuple(tap_components), lt, dev)
-    codes_kn = torch.gather(flat, 1, idx.reshape(idx.shape[0], -1)
-                            ).reshape(idx.shape)                   # [C, K, N]
-    x2 = torch.stack([xr, xi], dim=1)                              # [C, 2, N]
+    codes_kn = _code_taps(chips, tap_offsets, code_tables, table_rate,
+                          tap_components)                          # [C, K, N]
     # the products, written into _block_sum's zero-padded rows directly
     rows = -(-n_max // BLOCK_THREADS)
     prod = torch.empty((*codes_kn.shape[:2], 2, rows * BLOCK_THREADS),
-                       dtype=x2.dtype, device=dev)
+                       dtype=xr.dtype, device=dev)
     prod[..., n_max:].zero_()
-    torch.mul(codes_kn[:, :, None, :], x2[:, None], out=prod[..., :n_max])
+    torch.mul(codes_kn, xr[:, None], out=prod[:, :, 0, :n_max])
+    torch.mul(codes_kn, xi[:, None], out=prod[:, :, 1, :n_max])
     return _row_sum(prod.view(*prod.shape[:-1], rows, BLOCK_THREADS))
+
+
+def _code_taps(chips: torch.Tensor, tap_offsets: torch.Tensor,
+               code_tables: torch.Tensor, table_rate: int,
+               tap_components: tuple | None) -> torch.Tensor:
+    """Each tap's code entry at each sample, [C, K, N]: the table at the
+    floor-mod by Lt of floor((chips + tap) * table_rate), rounded in float32
+    as the JAX gather path computes it.
+
+    Where every index lies in [-Lt, 2 Lt) (a tracking window always: its
+    code phase starts in [0, Lt) and spans one period), the floor-mod is a
+    read from the table laid out three times over at index + Lt, the
+    plain form of the kernels' compare-and-add (``epoch_wrap_ok``): one
+    pass over the indices where the divide-and-floor takes five. Elsewhere
+    (a carry outside any tracking window's range, a NaN) it is the exact
+    floor-mod."""
+    n_ch, lt = code_tables.shape[0], code_tables.shape[-1]
+    idx_f = chips[:, None, :] + tap_offsets[None, :, None]
+    if table_rate != 1:
+        idx_f.mul_(const(float(table_rate), idx_f))
+    idx_f.floor_()
+    n_taps, dev = idx_f.shape[1], idx_f.device
+    comps = tuple(tap_components) if tap_components is not None \
+        else (0,) * n_taps
+    g = code_tables.numel() // (n_ch * lt)
+    lo, hi = torch.aminmax(idx_f)
+    if bool(lo >= -lt) and bool(hi < 2 * lt):
+        tables = code_tables.reshape(n_ch, g, 1, lt).expand(
+            -1, -1, 3, -1).reshape(-1)                            # [C*G*3Lt]
+        idx = idx_f.to(torch.int32).add_(_tap_base(n_ch, g, comps, 3 * lt,
+                                                   lt, dev))
+    else:
+        # the floor-mod of the integral float32 floor v, as v - Lt floor(v /
+        # Lt): for |v| < 2^24 the rounded quotient is within 1/Lt of the
+        # true one and never crosses an integer, so this is exact, as
+        # int32's floor-mod is
+        ltf = const(float(lt), idx_f)
+        idx = (idx_f - ltf * torch.floor(idx_f / ltf)).to(torch.int32)
+        idx.add_(_tap_base(n_ch, g, comps, lt, 0, dev))
+        tables = code_tables.reshape(-1)                           # [C*G*Lt]
+    return torch.index_select(tables, 0, idx.view(-1)).view(idx.shape)
 
 
 def _block_sum(p: torch.Tensor) -> torch.Tensor:
@@ -205,16 +237,17 @@ def _block_sum(p: torch.Tensor) -> torch.Tensor:
 def _row_sum(p: torch.Tensor) -> torch.Tensor:
     """:func:`_block_sum` of ``p`` [..., rows, BLOCK_THREADS], the window
     already cut into zero-padded rows of the block's threads."""
-    acc = p[..., 0, :].clone()
-    for r in range(1, p.shape[-2]):
-        acc.add_(p[..., r, :])
+    rows = p.unbind(-2)
+    acc = rows[0].clone()
+    for row in rows[1:]:
+        acc.add_(row)
     lanes = acc.reshape(*acc.shape[:-1], BLOCK_THREADS // 32, 32)
     for d in (16, 8, 4, 2, 1):
         lanes = lanes[..., :d] + lanes[..., d:2 * d]
-    warps = lanes[..., 0]
-    out = warps[..., 0]
-    for w in range(1, warps.shape[-1]):
-        out = out + warps[..., w]
+    warps = lanes[..., 0].unbind(-1)
+    out = warps[0]
+    for w in warps[1:]:
+        out = out + w
     return out
 
 

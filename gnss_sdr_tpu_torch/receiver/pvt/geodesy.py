@@ -58,6 +58,12 @@ def ecef_to_enu(d_ecef: np.ndarray, lat_rad: float, lon_rad: float) -> np.ndarra
     return enu_matrix(lat_rad, lon_rad) @ d_ecef
 
 
+def enu_to_ecef_offset(enu: np.ndarray, lat_rad: float,
+                       lon_rad: float) -> np.ndarray:
+    """Local ENU displacement -> ECEF displacement (inverse of ecef_to_enu)."""
+    return enu_matrix(lat_rad, lon_rad).T @ np.asarray(enu, np.float64)
+
+
 def az_el(rcv_ecef: np.ndarray, sat_ecef: np.ndarray) -> tuple[float, float]:
     """Azimuth/elevation (rad) of satellite as seen from receiver."""
     lat, lon, _ = ecef_to_geodetic(rcv_ecef)

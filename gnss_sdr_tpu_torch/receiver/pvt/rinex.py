@@ -3,10 +3,10 @@
 Port of gnss_sdr_tpu/receiver/pvt/rinex.py (reference analog:
 ``Rinex_Printer``, ``src/algorithms/PVT/libs/rinex_printer.cc``): the same
 text, byte for byte, for what this port's receiver produces — observables
-(C/L/D/S) of any signal, GPS LNAV / CNAV and Galileo I/NAV / F/NAV
-ephemerides (one Kepler record layout per system; the Galileo record's
-data-source word is the JAX package's, 513, for both). The
-navigation records of other systems (BeiDou, GLONASS, SBAS) raise
+(C/L/D/S) of any signal, GPS LNAV / CNAV, Galileo I/NAV / F/NAV and
+BeiDou D1 ephemerides (one Kepler record layout per system; the Galileo
+record's data-source word is the JAX package's, 513, for both). The
+navigation records of other systems (GLONASS, SBAS) raise
 ``NotImplementedError`` until their signals are ported.
 """
 
@@ -212,11 +212,12 @@ class RinexObsReader:
 
 
 class RinexNavWriter:
-    """RINEX 3.02 mixed (or 2.11 GPS) navigation writer for GPS LNAV and
-    Galileo I/NAV records.
+    """RINEX 3.02 mixed (or 2.11 GPS) navigation writer for GPS LNAV,
+    Galileo I/NAV and BeiDou D1 records.
 
     Reference analog: the nav side of ``rinex_printer.cc`` (log_rinex_nav
-    for Gps_Ephemeris / Galileo_Ephemeris); other systems' records raise.
+    for Gps_Ephemeris / Galileo_Ephemeris / Beidou_Dnav_Ephemeris); other
+    systems' records raise.
     """
 
     def __init__(self, path, version: str = "3.02",
@@ -298,9 +299,9 @@ class RinexNavWriter:
         self._f.write(pad + "".join(_f1912(v) for v in vals) + "\n")
 
     def write_ephemeris(self, eph, system: str = "G") -> None:
-        """Append one GPS LNAV or Galileo I/NAV broadcast record (a
-        KeplerEphemeris)."""
-        if system not in ("G", "E") or hasattr(eph, "tb_s") \
+        """Append one GPS LNAV, Galileo I/NAV or BeiDou D1 broadcast record
+        (a KeplerEphemeris)."""
+        if system not in ("G", "E", "C") or hasattr(eph, "tb_s") \
                 or hasattr(eph, "agf0_s"):
             raise NotImplementedError(
                 f"RINEX navigation records of system {system!r} "
@@ -326,11 +327,15 @@ class RinexNavWriter:
             self._line(float(eph.ura), float(eph.health), eph.tgd,
                        float(eph.iodc))
             self._line(eph.toe, 4.0)
-        else:
+        elif system == "E":
             # data sources 0x0201 = I/NAV E1-B; BGD E5a/E1 in the tgd slot
             self._line(eph.idot, 513.0, float(eph.week), 0.0)
             self._line(float(eph.ura), float(eph.health), eph.tgd, 0.0)
             self._line(eph.toe, 0.0)
+        else:                                            # BeiDou D1
+            self._line(eph.idot, 0.0, float(eph.week), 0.0)
+            self._line(float(eph.ura), float(eph.health), eph.tgd, 0.0)
+            self._line(eph.toe, float(eph.iodc))
         self._f.flush()
 
     def close(self) -> None:
@@ -338,8 +343,8 @@ class RinexNavWriter:
 
 
 class RinexNavReader:
-    """RINEX 3.x mixed / 2.11 navigation reader for GPS LNAV and Galileo
-    I/NAV records.
+    """RINEX 3.x mixed / 2.11 navigation reader for GPS LNAV, Galileo I/NAV
+    and BeiDou D1 records.
 
     Reference analog: RTKLIB's ``readrnx`` nav branch (rtklib_rinex).
     Returns a dict keyed (system, prn) -> ephemeris (latest record wins);
@@ -419,7 +424,7 @@ class RinexNavReader:
                                   int(ln[21:23]))
             a = [float(ln[23 + 19 * k: 23 + 19 * (k + 1)].replace("D", "E"))
                  for k in range(3)]
-            if system not in ("G", "E"):
+            if system not in ("G", "E", "C"):
                 raise NotImplementedError(
                     f"RINEX navigation records of system {system!r} are not "
                     f"ported yet")
@@ -444,6 +449,8 @@ class RinexNavReader:
                 iodc=int(rows[5][3]))
             if system == "E":
                 eph.gm = C.GM_EARTH_GAL
+            elif system == "C":
+                eph.gm = C.GM_EARTH_BDS
             out[(system, prn)] = eph
             i += 8
         return out

@@ -9,13 +9,14 @@ advances chunk by chunk; per chunk it runs
 The channel manager mirrors the reference's state machine (idle -> tracking,
 reacquire on loss; gnss_flowgraph.cc:1203-1366).
 
-This port covers the GPS L1 C/A, GPS L5I, Galileo E1-B and Galileo E5a-I
-receivers, alone or as signal groups of one hybrid receiver
+This port covers the GPS L1 C/A, GPS L2 CM, GPS L5I, Galileo E1-B,
+Galileo E5a-I and BeiDou B1I (MEO / IGSO, D1) receivers, alone or as
+signal groups of one hybrid receiver
 (``signal_plan``, ``group_params``: each group runs its own tracking loop
 on the shared stream; BOC(1,1) VEML tracking and E1-C pilot tracking for
-Galileo E1; L5Q / E5a-Q pilot tracking and the NH10 / CS20 wipe after
-symbol sync for the wideband signals; E5a's noncoherent I/Q CAF
-acquisition), with the control plane
+Galileo E1; L5Q / E5a-Q pilot tracking and the NH10 / CS20 / NH20 wipe
+after symbol sync for the overlaid signals; L2 CM's 20 ms code epochs;
+E5a's noncoherent I/Q CAF acquisition), with the control plane
 (telecommands, assistance, output sinks) and the rate conditioner of
 ``run_file_source``. Every ``ReceiverConfig`` field of the JAX package
 exists here; a field that selects a feature not yet ported raises
@@ -116,7 +117,10 @@ class ReceiverConfig:
 
 
 # the signals whose codes, tracking and telemetry are ported
-PORTED_SIGNALS = ("1C", "1B", "L5", "5X")
+PORTED_SIGNALS = ("1C", "1B", "2S", "L5", "5X", "B1")
+# BeiDou GEO satellites (PRN 1-5) broadcast D2 at 500 bps, whose decoder is
+# not ported: a B1 group leaves them out of its acquisition pool
+BEIDOU_GEO_PRNS = range(1, 6)
 # the acquisition engines ported: PCPS, and Galileo E5a's noncoherent I/Q
 # search with CAF Doppler smoothing
 PORTED_ACQ_VARIANTS = ("pcps", "e5a_caf")
@@ -279,6 +283,13 @@ class SignalGroup:
         self.acq_reps: dict[int, np.ndarray] = {}
         self.acq_reps2: dict[int, tuple] = {}   # e5a_caf replica pairs
         self.acq_pool = list(prns)
+        if self.spec.system == "C":
+            geo = [p for p in prns if p in BEIDOU_GEO_PRNS]
+            if geo:
+                log.warning("BeiDou GEO PRNs %s left out of acquisition: "
+                            "their D2 decoder (beidou_d2) is not ported", geo)
+                self.acq_pool = [p for p in prns
+                                 if p not in BEIDOU_GEO_PRNS]
         self.acq_backoff: dict[int, int] = {}
         # consecutive failed dwells per PRN: retry intervals grow
         # exponentially (5 chunks doubling to a 300-chunk cap)

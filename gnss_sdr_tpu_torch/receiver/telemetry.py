@@ -318,6 +318,115 @@ class _History:
         return self._p[: self.n]
 
 
+def _cnav_frame_search(fec, cnav, soft: np.ndarray, start: int, end: int,
+                       block: int = 64) -> tuple[int, float] | None:
+    """The first (offset, polarity) with start <= offset < end, +1 before
+    -1 at each offset, at which 612 soft symbols Viterbi-decode to a CNAV
+    message whose preamble and CRC check: the order in which the JAX
+    decoders try them one at a time. Offsets are decoded ``block`` at a
+    time (one batched Viterbi), which finds the same first one."""
+    for b0 in range(start, end, block):
+        offs = range(b0, min(b0 + block, end))
+        win = np.stack([soft[o: o + 612] for o in offs])
+        bits = fec.viterbi_decode(np.stack([win, -win], axis=1), 300)
+        for i, off in enumerate(offs):
+            for k, pol in enumerate((1.0, -1.0)):
+                if cnav.decode_message(bits[i, k]) is not None:
+                    return off, pol
+    return None
+
+
+class GpsL2CMTelemetry:
+    """GPS L2C CNAV telemetry: 1 symbol per 20 ms CM code epoch (50 sps),
+    continuous K=7 r=1/2 FEC, CRC-24Q framing.
+
+    Reference analog: gps_l2c_telemetry_decoder_gs.cc + libswiftcnav.
+    Frame sync: try both FEC phase hypotheses (symbol pairing) x polarity and
+    scan Viterbi output for preamble + CRC. The search resumes at the first
+    offset a push has not tried (the JAX package restarts it at 0 on every
+    push; an offset tried saw the same symbols and failed, so both find the
+    same anchor).
+    """
+
+    MSG_SYMBOLS = 600               # 300 bits * 2 symbols at r=1/2
+    MSG_PERIOD_S = 12.0
+
+    def __init__(self, prn: int):
+        from gnss_sdr_tpu_torch.models.nav import fec, gps_cnav
+        self._fec = fec
+        self._cnav = gps_cnav
+        self.prn = prn
+        self._hist = _History()
+        self.assembler = gps_cnav.CnavAssembler(prn)
+        self.tow_ref: TowReference | None = None
+        self._frame_anchor: tuple[int, float] | None = None  # (sym_off, pol)
+        self._search_from = 0     # the first frame offset not yet tried
+        self._decoded_upto = 0
+        self.message_count = 0
+
+    def push(self, epoch_indices, prompts_i) -> None:
+        if len(epoch_indices) == 0:
+            return
+        self._hist.append(epoch_indices, prompts_i)
+        self._decode()
+
+    def _try_decode_at(self, soft: np.ndarray, off: int, pol: float):
+        """Viterbi-decode 600 symbols -> 300 bits, validate preamble+CRC."""
+        sym = pol * soft[off: off + self.MSG_SYMBOLS + 12]
+        if len(sym) < self.MSG_SYMBOLS + 12:
+            return None
+        bits = self._fec.viterbi_decode(sym, 300)
+        return self._cnav.decode_message(bits)
+
+    def _decode(self) -> None:
+        soft = -self._hist.prompts          # + == bit 1
+        n = len(soft)
+        if self._frame_anchor is None:
+            end = min(n - (self.MSG_SYMBOLS + 12), 1300)
+            self._frame_anchor = _cnav_frame_search(
+                self._fec, self._cnav, soft, self._search_from, end)
+            if self._frame_anchor is None:
+                self._search_from = max(self._search_from, end)
+                return
+            self._decoded_upto = self._frame_anchor[0]
+        _, pol = self._frame_anchor
+        while self._decoded_upto + self.MSG_SYMBOLS + 12 <= n:
+            off = self._decoded_upto
+            res = self._try_decode_at(soft, off, pol)
+            if res is not None:
+                mtype, prn, tow, fields = res
+                self.assembler.push(mtype, fields)
+                self.message_count += 1
+                # CNAV TOW is the time of the NEXT message start (12 s later
+                # on L2C); this message started 12 s before that epoch tag.
+                self.tow_ref = TowReference(
+                    tow_s=tow - self.MSG_PERIOD_S,
+                    epoch=int(self._hist.epochs[0]) + off, polarity=1)
+            self._decoded_upto = off + self.MSG_SYMBOLS
+
+    @property
+    def half_cycle(self) -> float:
+        """+0.5 when the FEC frame sync chose the inverted polarity, i.e.
+        the Costas loop locked 180 deg off (see GpsL1CaTelemetry)."""
+        if self._frame_anchor is not None and self._frame_anchor[1] < 0:
+            return 0.5
+        return 0.0
+
+    @property
+    def have_tow(self) -> bool:
+        return self.tow_ref is not None
+
+    def transmit_time(self, epoch: int, chips: float, code_len: int = 10230,
+                      code_rate: float = 0.5115e6) -> float | None:
+        if self.tow_ref is None:
+            return None
+        de = epoch - self.tow_ref.epoch
+        return self.tow_ref.tow_s + (de * code_len + chips) / code_rate
+
+    def ephemeris(self):
+        return self.assembler.ephemeris()
+
+
 class GpsL5ITelemetry:
     """GPS L5I CNAV telemetry: 1 ms primary-code epochs carry
     symbol * NH10[epoch phase]; the 10-bit Neuman-Hofman overlay gives 10 ms
@@ -392,17 +501,12 @@ class GpsL5ITelemetry:
             # the frame search resumes where the last push left it: an
             # offset already tried saw the same soft symbols and failed
             end = min(n - (self.MSG_SYMBOLS + 12), 1300)
-            for off in range(self._search_from, end):
-                for pol in (1.0, -1.0):
-                    if self._try_decode_at(soft, off, pol) is not None:
-                        self._frame_anchor = (off, pol)
-                        self._decoded_upto = off
-                        break
-                if self._frame_anchor:
-                    break
+            self._frame_anchor = _cnav_frame_search(
+                self._fec, self._cnav, soft, self._search_from, end)
             if self._frame_anchor is None:
                 self._search_from = max(self._search_from, end)
                 return
+            self._decoded_upto = self._frame_anchor[0]
         _, pol = self._frame_anchor
         while self._decoded_upto + self.MSG_SYMBOLS + 12 <= n:
             off = self._decoded_upto
@@ -549,17 +653,139 @@ class GalileoE5aTelemetry:
         return self.assembler.ephemeris()
 
 
+class BeidouB1ITelemetry:
+    """BeiDou B1I D1 telemetry: NH20-modulated 50 bps, BCH-checked subframes.
+
+    Reference analog: beidou_b1i_telemetry_decoder_gs.cc. Each 1 ms epoch
+    prompt = data_bit * NH20[epoch % 20]; bit sync correlates against the NH
+    sequence, then subframes are preamble-synced and BCH-validated. The
+    preamble search resumes at the first bit a push has not tried (the JAX
+    package restarts it at 0 on every push; once the NH phase is fixed a
+    bit's soft value never changes, so both find the same anchor).
+    """
+
+    NH20 = np.array([0, 0, 0, 0, 0, 1, 0, 0, 1, 1, 0, 1, 0, 1, 0, 0, 1, 1, 1,
+                     0], np.uint8)
+
+    def __init__(self, prn: int):
+        from gnss_sdr_tpu_torch.models.nav import beidou_d1
+        self._d1 = beidou_d1
+        self.prn = prn
+        self._hist = _History()
+        self.assembler = beidou_d1.D1Assembler(prn)
+        self.bit_phase: int | None = None
+        self._polarity = 1.0
+        self.tow_ref: TowReference | None = None
+        self._frame_anchor_bit: int | None = None
+        self._search_from = 0     # the first bit the preamble search skips
+        self._decoded_upto = 0
+        self.subframe_count = 0
+
+    def push(self, epoch_indices, prompts_i) -> None:
+        if len(epoch_indices) == 0:
+            return
+        self._hist.append(epoch_indices, prompts_i)
+        self._decode()
+
+    def _bits(self):
+        """NH-wipe and integrate to 50 bps soft bits."""
+        nh_pm = 1.0 - 2.0 * self.NH20.astype(np.float64)
+        p = self._hist.prompts
+        e0 = int(self._hist.epochs[0])
+        if self.bit_phase is None:
+            self.bit_phase = _overlay_phase_sync(p, e0, nh_pm)
+            if self.bit_phase is None:
+                return None, None
+        off = (self.bit_phase - e0) % 20
+        n_b = (len(p) - off) // 20
+        if n_b <= 0:
+            return None, None
+        seg = p[off: off + n_b * 20].reshape(n_b, 20)
+        soft = seg @ nh_pm
+        starts = e0 + off + np.arange(n_b, dtype=np.int64) * 20
+        return soft, starts
+
+    def _decode(self) -> None:
+        soft, starts = self._bits()
+        if soft is None:
+            return
+        n = len(soft)
+        pre_pm = 1.0 - 2.0 * self._d1.PREAMBLE.astype(np.float64)
+        if self._frame_anchor_bit is None:
+            for i in range(self._search_from, n - 300):
+                c = float(np.dot(np.sign(soft[i: i + 11]), pre_pm))
+                if abs(c) != 11:
+                    continue
+                pol = 1.0 if c > 0 else -1.0
+                bits = ((1 - pol * np.sign(soft[i: i + 300])) // 2
+                        ).astype(np.uint8)
+                if self._d1.decode_subframe(bits) is None:
+                    continue
+                self._frame_anchor_bit = i
+                self._polarity = pol
+                self._decoded_upto = i
+                break
+            if self._frame_anchor_bit is None:
+                self._search_from = max(self._search_from, n - 300)
+                return
+        while self._decoded_upto + 300 <= n:
+            i = self._decoded_upto
+            bits = ((1 - self._polarity * np.sign(soft[i: i + 300])) // 2
+                    ).astype(np.uint8)
+            out = self._d1.decode_subframe(bits)
+            if out is not None:
+                fraid, sow, fields = out
+                self.assembler.push(fraid, fields)
+                self.subframe_count += 1
+                self.tow_ref = TowReference(tow_s=sow, epoch=int(starts[i]),
+                                            polarity=int(self._polarity))
+            self._decoded_upto = i + 300
+
+    @property
+    def have_tow(self) -> bool:
+        return self.tow_ref is not None
+
+    @property
+    def sync_failed(self) -> bool:
+        return self.bit_phase is None and self._hist.n > 6000
+
+    def transmit_time(self, epoch: int, chips: float, code_len: int = 2046,
+                      code_rate: float = 2.046e6) -> float | None:
+        """BDT seconds of week (BDT = GPS time - 14 s at the system level)."""
+        if self.tow_ref is None:
+            return None
+        de = epoch - self.tow_ref.epoch
+        return self.tow_ref.tow_s + (de * code_len + chips) / code_rate
+
+    def ephemeris(self):
+        return self.assembler.ephemeris()
+
+
 def make_telemetry(signal: str, prn: int):
     """Telemetry decoder factory by signal code (reference:
-    GNSSBlockFactory::GetTlmBlock). GPS L1 C/A LNAV, GPS L5 CNAV, Galileo
-    E1-B I/NAV and Galileo E5a F/NAV are ported so far."""
+    GNSSBlockFactory::GetTlmBlock). GPS L1 C/A LNAV, GPS L2C and L5 CNAV,
+    Galileo E1-B I/NAV, Galileo E5a F/NAV and BeiDou B1I D1 (MEO / IGSO)
+    are ported so far."""
     if signal == "1C" and prn < 120:
         return GpsL1CaTelemetry(prn)
     if signal == "1B":
         return GalileoE1BTelemetry(prn)
+    if signal == "2S":
+        return GpsL2CMTelemetry(prn)
     if signal == "L5":
         return GpsL5ITelemetry(prn)
     if signal == "5X":
         return GalileoE5aTelemetry(prn)
+    if signal == "B1":
+        if prn <= 5:
+            raise NotImplementedError(
+                f"BeiDou PRN {prn} is a GEO satellite (D2 at 500 bps): its "
+                f"decoder (beidou_d2, BeidouB1IGeoTelemetry) is not ported "
+                f"yet")
+        return BeidouB1ITelemetry(prn)
+    if signal == "B3":
+        raise NotImplementedError(
+            "BeiDou B3I (signal 'B3': its code, the D1 / D2 decoders at "
+            "10.23 Mcps) is not ported yet")
     raise NotImplementedError(
         f"telemetry for signal {signal!r} PRN {prn} is not ported yet")

@@ -4,7 +4,7 @@ The system-test enabler (reference analog: the external gnss-sim spawned by
 ``position_test.cc``): picks visible satellites for a receiver truth position,
 fits each satellite's transmit-time trajectory to the generator's
 (delay, doppler, doppler-rate) model, attaches real navigation symbols
-(LNAV, I/NAV, CNAV, F/NAV), and returns
+(LNAV, I/NAV, CNAV, F/NAV, BeiDou D1), and returns
 everything needed to synthesize IQ and to verify the receiver's output
 against absolute truth.
 """
@@ -34,6 +34,9 @@ class Scenario:
     sats: list[generator.SatParams]
     prns: list[int]
     spec: constants.SignalSpec = constants.GPS_L1_CA
+    # constant-velocity receiver motion (dynamic system test; the reference
+    # asserts against a Spirent motion file, position_test.cc:803-804)
+    rcv_vel_ecef: np.ndarray | None = None
 
     def generate(self, seed: int = 0, noise: bool = True,
                  **kw) -> np.ndarray:
@@ -43,8 +46,14 @@ class Scenario:
                                   self.duration_s, seed=seed, noise=noise,
                                   **kw)
 
+    def rcv_pos_at(self, t_since_t0: float) -> np.ndarray:
+        """Truth receiver position t seconds after sample 0."""
+        if self.rcv_vel_ecef is None:
+            return self.rcv_ecef
+        return self.rcv_ecef + self.rcv_vel_ecef * t_since_t0
 
-def _fit_t_tx(eph, rcv: np.ndarray, t0: float, duration_s: float):
+
+def _fit_t_tx(eph, rcv_at, t0: float, duration_s: float):
     """Cubic fit of the SV transmit-time trajectory, done in SMALL numbers.
 
     Fits y(t) = t_reception - t_tx_sv = tau - dt_sv (ObsInput.t_offset_s,
@@ -57,7 +66,7 @@ def _fit_t_tx(eph, rcv: np.ndarray, t0: float, duration_s: float):
     """
     ts = np.linspace(0.0, duration_s, 8)
     ys = np.array([constellation.simulate_observation(
-        eph, rcv, t0 + t).t_offset_s for t in ts])
+        eph, rcv_at(t), t0 + t).t_offset_s for t in ts])
     y3, y2, y1, y0 = np.polyfit(ts, ys, 3)
     return -y3, -y2, 1.0 - y1, t0 - y0
 
@@ -78,9 +87,11 @@ def _geometric_phase0(fc: float, t_tx0: float) -> float:
 def build_gps_l1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0),
                           t0_gps: float = 352800.08, duration_s: float = 28.0,
                           fs: float = 2.046e6, n_sats: int = 6,
-                          cn0_dbhz: float = 47.0) -> Scenario:
-    """Build a static GPS L1 C/A scenario on the almanac constellation
-    (the JAX package's builder without its motion, SBAS and almanac-page
+                          cn0_dbhz: float = 47.0,
+                          vel_enu: tuple = (0.0, 0.0, 0.0)) -> Scenario:
+    """Build a GPS L1 C/A scenario on the almanac constellation, static or
+    with the receiver at the constant velocity ``vel_enu`` (m/s east, north,
+    up) (the JAX package's function without its SBAS and almanac-page
     options).
 
     The LNAV streams cycle subframes (1,2,3) so ephemeris is decodable within
@@ -93,6 +104,14 @@ def build_gps_l1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0)
     for e in ephs.values():
         e.tgd = 0.0   # signal-level sim carries no inter-signal group delay
     rcv = geodesy.geodetic_to_ecef(*rcv_llh)
+    moving = any(v != 0.0 for v in vel_enu)
+    vel_ecef = (geodesy.enu_to_ecef_offset(
+        np.asarray(vel_enu, float), rcv_llh[0], rcv_llh[1])
+        if moving else None)
+
+    def rcv_at(t: float) -> np.ndarray:
+        return rcv + vel_ecef * t if moving else rcv
+
     vis = constellation.visible_sats(ephs, rcv, t0_gps, el_mask_deg=15.0)
     chosen = [prn for prn, _, _ in vis[:n_sats]]
     if len(chosen) < n_sats:
@@ -113,7 +132,7 @@ def build_gps_l1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0)
     for prn in chosen:
         eph = ephs[prn]
         # quadratic fit of t_tx_sv(t), t = receiver time since sample 0
-        a3, a2, a1, a0 = _fit_t_tx(eph, rcv, t0_gps, duration_s)
+        a3, a2, a1, a0 = _fit_t_tx(eph, rcv_at, t0_gps, duration_s)
         doppler = fc * (a1 - 1.0)
         doppler_rate = fc * 2.0 * a2
         doppler_jerk = fc * 6.0 * a3
@@ -130,7 +149,8 @@ def build_gps_l1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0)
 
     sc = Scenario(rcv_ecef=rcv, rcv_llh=rcv_llh, t0_gps=t0_gps,
                   tow_bits_start=tow_bits_start, duration_s=duration_s,
-                  fs=fs, ephemerides=ephs, sats=sats, prns=chosen)
+                  fs=fs, ephemerides=ephs, sats=sats, prns=chosen,
+                  rcv_vel_ecef=vel_ecef)
     return sc
 
 
@@ -177,7 +197,8 @@ def build_galileo_e1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 8
     sats = []
     for prn in chosen:
         eph = ephs[prn]
-        a3, a2, a1, a0 = _fit_t_tx(eph, rcv, t0_gps, duration_s)
+        a3, a2, a1, a0 = _fit_t_tx(eph, lambda _t: rcv, t0_gps,
+                                   duration_s)
         symbols = galileo_inav.encode_stream(eph, tow_sym_start, n_pages)
         sats.append(generator.SatParams(
             prn=prn, cn0_dbhz=cn0_dbhz,
@@ -231,7 +252,8 @@ def build_gps_l5_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0)
     sats = []
     for prn in chosen:
         eph = ephs[prn]
-        a3, a2, a1, a0 = _fit_t_tx(eph, rcv, t0_gps, duration_s)
+        a3, a2, a1, a0 = _fit_t_tx(eph, lambda _t: rcv, t0_gps,
+                                   duration_s)
         sym = gps_cnav.encode_symbol_stream(eph, tow_sym_start, n_messages,
                                             period_s=6.0)
         sats.append(generator.SatParams(
@@ -244,6 +266,121 @@ def build_gps_l5_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0)
 
     return Scenario(rcv_ecef=rcv, rcv_llh=rcv_llh, t0_gps=t0_gps,
                     tow_bits_start=tow_sym_start, duration_s=duration_s,
+                    fs=fs, ephemerides=ephs, sats=sats, prns=chosen,
+                    spec=spec)
+
+
+def build_gps_l2c_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0),
+                           t0_gps: float = 352800.07, duration_s: float = 58.0,
+                           fs: float = 2.0e6, n_sats: int = 4,
+                           cn0_dbhz: float = 45.0) -> Scenario:
+    """GPS L2 CM signal-level scenario with CNAV (12 s messages, 50 sps).
+
+    One 20 ms CM code period per FEC symbol; the convolutional stream is
+    continuous across messages. CM-only model (the chip-by-chip CM/CL time
+    multiplex carries no extra information for a CM correlator; the
+    reference's L2C chain likewise correlates against the CM code,
+    gps_l2c_signal.cc + GetChannel_2S). Ephemeris needs messages 10+11 (+30
+    for clock) = a full 36 s cycle after frame sync, hence the ~58 s
+    default. 2.0 Msps is incommensurate with the 511.5 kcps chip rate.
+    """
+    from gnss_sdr_tpu_torch.models.nav import gps_cnav
+
+    spec = constants.GPS_L2_CM
+    ephs = constellation.almanac_constellation()
+    for e in ephs.values():
+        e.tgd = 0.0
+    rcv = geodesy.geodetic_to_ecef(*rcv_llh)
+    vis = constellation.visible_sats(ephs, rcv, t0_gps, el_mask_deg=15.0)
+    chosen = [prn for prn, _, _ in vis[:n_sats]]
+    if len(chosen) < n_sats:
+        raise RuntimeError(f"only {len(chosen)} visible sats")
+
+    fc = spec.carrier_freq_hz
+    t_tx0 = {prn: constellation.simulate_observation(
+        ephs[prn], rcv, t0_gps).t_tx_sv for prn in chosen}
+    # symbol-stream origin: a 12 s CNAV message boundary before min t_tx(0)
+    tow_sym_start = 12.0 * np.floor(min(t_tx0.values()) / 12.0)
+    n_messages = int(np.ceil((duration_s + 24.0) / 12.0)) + 1
+
+    sats = []
+    for prn in chosen:
+        eph = ephs[prn]
+        a3, a2, a1, a0 = _fit_t_tx(eph, lambda _t: rcv, t0_gps,
+                                   duration_s)
+        sym = gps_cnav.encode_symbol_stream(eph, tow_sym_start, n_messages,
+                                            period_s=12.0)
+        sats.append(generator.SatParams(
+            prn=prn, cn0_dbhz=cn0_dbhz,
+            carrier_phase_cycles=_geometric_phase0(fc, a0),
+            doppler_hz=fc * (a1 - 1.0), doppler_rate_hz_s=fc * 2.0 * a2,
+            doppler_jerk_hz_s2=fc * 6.0 * a3,
+            code_delay_s=tow_sym_start - a0,
+            data_bits=generator.lnav_bits_to_symbols(sym)))
+
+    return Scenario(rcv_ecef=rcv, rcv_llh=rcv_llh, t0_gps=t0_gps,
+                    tow_bits_start=tow_sym_start, duration_s=duration_s,
+                    fs=fs, ephemerides=ephs, sats=sats, prns=chosen,
+                    spec=spec)
+
+
+def build_beidou_b1i_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0),
+                              t0_gps: float = 352800.09,
+                              duration_s: float = 30.0,
+                              fs: float = 4.0e6, n_sats: int = 4,
+                              cn0_dbhz: float = 48.0,
+                              band: str = "B1") -> Scenario:
+    """BeiDou B1I (MEO/IGSO D1) scenario: NH20 overlay + 6 s subframes (the
+    JAX package's function without its almanac-page option; ``band`` "B3"
+    raises until B3I is ported).
+
+    Subframes cycle FraID (1,2,3) with per-slot SOW so the ephemeris
+    (subframes 1-3, beidou_d1.D1Assembler) completes within ~20 s of NH
+    sync. PRNs are restricted to >= 6 (GEO PRNs 1-5 transmit D2 at 500
+    sps). Reference analog: the Channels_B1 chain (BEIDOU_B1I_* adapters +
+    beidou_b1i_telemetry_decoder_gs.cc).
+    """
+    from gnss_sdr_tpu_torch.models.nav import beidou_d1
+
+    if band != "B1":
+        raise NotImplementedError(
+            f"BeiDou band {band!r}: only B1I is ported (B3I is not yet)")
+    spec = constants.BEIDOU_B1I
+    ephs = constellation.almanac_constellation()
+    for e in ephs.values():
+        e.tgd = 0.0
+        e.gm = constants.GM_EARTH_BDS
+    rcv = geodesy.geodetic_to_ecef(*rcv_llh)
+    vis = constellation.visible_sats(ephs, rcv, t0_gps, el_mask_deg=15.0)
+    chosen = [prn for prn, _, _ in vis if prn >= 6][:n_sats]
+    if len(chosen) < n_sats:
+        raise RuntimeError(f"only {len(chosen)} visible MEO sats")
+
+    fc = spec.carrier_freq_hz
+    t_tx0 = {prn: constellation.simulate_observation(
+        ephs[prn], rcv, t0_gps).t_tx_sv for prn in chosen}
+    tow_bits_start = 6.0 * np.floor(min(t_tx0.values()) / 6.0)
+    n_subframes = int(np.ceil((duration_s + 12.0) / 6.0)) + 1
+
+    sats = []
+    for prn in chosen:
+        eph = ephs[prn]
+        a3, a2, a1, a0 = _fit_t_tx(eph, lambda _t: rcv, t0_gps,
+                                   duration_s)
+        subframes = [beidou_d1.encode_subframe(
+            (k % 3) + 1, tow_bits_start + 6.0 * k, eph)
+            for k in range(n_subframes)]
+        bits = np.concatenate(subframes)
+        sats.append(generator.SatParams(
+            prn=prn, cn0_dbhz=cn0_dbhz,
+            carrier_phase_cycles=_geometric_phase0(fc, a0),
+            doppler_hz=fc * (a1 - 1.0), doppler_rate_hz_s=fc * 2.0 * a2,
+            doppler_jerk_hz_s2=fc * 6.0 * a3,
+            code_delay_s=tow_bits_start - a0,
+            data_bits=generator.lnav_bits_to_symbols(bits)))
+
+    return Scenario(rcv_ecef=rcv, rcv_llh=rcv_llh, t0_gps=t0_gps,
+                    tow_bits_start=tow_bits_start, duration_s=duration_s,
                     fs=fs, ephemerides=ephs, sats=sats, prns=chosen,
                     spec=spec)
 
@@ -288,7 +425,8 @@ def build_galileo_e5a_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 
     sats = []
     for prn in chosen:
         eph = ephs[prn]
-        a3, a2, a1, a0 = _fit_t_tx(eph, rcv, t0_gps, duration_s)
+        a3, a2, a1, a0 = _fit_t_tx(eph, lambda _t: rcv, t0_gps,
+                                   duration_s)
         symbols = galileo_fnav.encode_stream(eph, tow_page_start, n_pages,
                                              wn=eph.week, page_offset=3)
         sats.append(generator.SatParams(
@@ -316,9 +454,14 @@ _HANDOFF_SATS = {
            (17, 3300.0, 9.2e-4), (24, -700.0, 2.6e-4)),
     "5X": ((11, 1250.0, 2.2e-4), (12, -2600.0, 5.3e-4), (19, 610.0, 8.1e-4),
            (26, 3100.0, 9.6e-5), (33, -950.0, 4.4e-4)),
+    "2S": ((2, 1150.0, 2.3e-3), (5, -2200.0, 7.9e-3), (13, 480.0, 1.17e-2),
+           (21, 3400.0, 1.63e-2), (30, -850.0, 4.1e-3)),
+    "B1": ((6, 1300.0, 1.9e-4), (9, -2500.0, 4.6e-4), (14, 570.0, 7.3e-4),
+           (27, 3200.0, 9.1e-4), (33, -750.0, 3.2e-4)),
 }
 # default sample rates of tracking_handoff_case (the JAX e2e tests' rates)
-_HANDOFF_FS = {"1C": 2.0e6, "1B": 4.0e6, "L5": 11.0e6, "5X": 12.0e6}
+_HANDOFF_FS = {"1C": 2.0e6, "1B": 4.0e6, "L5": 11.0e6, "5X": 12.0e6,
+               "2S": 2.0e6, "B1": 4.0e6}
 
 
 def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
@@ -329,18 +472,21 @@ def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
     ("1C": GPS L1 C/A at 2 MSps; "1B": Galileo E1-B with its E1-C pilot at
     4 MSps, BOC(1,1) tables at 2 entries per chip; "L5": GPS L5I with its
     NH10 overlay and the L5Q pilot at 11 MSps; "5X": Galileo E5a-I with its
-    CS20 overlay and the E5a-Q / CS100 pilot at 12 MSps), 45-49 dB-Hz, on
+    CS20 overlay and the E5a-Q / CS100 pilot at 12 MSps; "2S": GPS L2 CM,
+    one 20 ms code epoch per step, at 2 MSps; "B1": BeiDou B1I with its
+    NH20 overlay at 4 MSps), 45-49 dB-Hz, on
     ``n_channels`` channels, every channel but the last (idle) handed off to
     satellite ``ch % 5`` slightly off the truth (+15 Hz in code rate, 15 Hz
     steps of Doppler error), over one dispatch of ``chunks`` 100 ms chunks
     plus the halo. ``pilot`` tracks the pilot with a data prompt ([C, 2, Lt]
     tables). ``extended`` switches channel 1 to coherent integration over a
     bit or symbol (20 epochs for GPS L1, 5 for Galileo E1, one secondary
-    code period for L5 / E5a) and channel 3 (L5 / E5a on fewer than 5
-    channels: the last live one) to the same with a secondary-code wipe (a
-    10-chip code for GPS L1, the E1-C CS25 for Galileo E1, the data
-    component's NH10 / CS20 for L5 / E5a, as the receiver installs it after
-    symbol sync).
+    code period for L5 / E5a / B1I) and channel 3 (L5 / E5a / B1I on fewer
+    than 5 channels: the last live one) to the same with a secondary-code
+    wipe (a 10-chip code for GPS L1, the E1-C CS25 for Galileo E1, the
+    data component's NH10 / CS20 / NH20 for L5 / E5a / B1I, as the receiver
+    installs it after symbol sync). L2C has no extended case: its symbol is
+    its code epoch.
 
     Returns dict(cfg, chunk [L, 2] float32 numpy, state (the carry on
     ``device``), tables [C, Lt] or [C, 2, Lt] float32 numpy, sec [C, 32]
@@ -391,6 +537,9 @@ def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
             tables[ch] = data
     sec = None
     if extended:
+        if signal == "2S":
+            raise ValueError("L2 CM has no extended case: one symbol per "
+                             "code epoch")
         sec = np.ones((n_ch, cfg.sec_table_len), np.float32)
         if signal == "1C":
             state = trk.set_extension(state, 1, 20, 7)

@@ -33,12 +33,12 @@ CONFS = sorted((ROOT / "conf").glob("*.conf"))
 # conf -> (where the port refuses it, the key or field named), or None when
 # the port runs it whole
 UNPORTED = {
-    "beidou_b1i": ("receiver", "signal"),
+    "beidou_b1i": None,
     "beidou_b3i": ("receiver", "signal"),
     "galileo_e5a": None,
     "glonass_l1": ("receiver", "signal"),
     "glonass_l2": ("receiver", "signal"),
-    "gps_l2c": ("receiver", "signal"),
+    "gps_l2c": None,
     "gps_l5": None,
     "hybrid_gps_galileo": None,
     "ppp_static": None,           # PPP: refused by attach_outputs
@@ -208,7 +208,7 @@ def test_rate_conditioner_block_lengths_match_jax():
 def test_check_ported_galileo_e1_names():
     """The Galileo E1 blocks of this receiver (PCPS acquisition, VEML
     tracking, the E1-B telemetry decoder) pass; the E1 blocks the port lacks
-    and the GPS L2C, GLONASS and BeiDou blocks still raise."""
+    and the GLONASS and BeiDou B3I blocks still raise."""
     ok = ("Channels_1B.count=4\n"
           "Acquisition_1B.implementation=Galileo_E1_PCPS_Ambiguous_"
           "Acquisition\n"
@@ -230,15 +230,15 @@ def test_check_ported_galileo_e1_names():
             ("Channels_1B.count=4\nTracking_1B.implementation="
              "Galileo_E1_TCP_CONNECTOR_Tracking\n",
              "Tracking_1B.implementation=Galileo_E1_TCP_CONNECTOR"),
-            ("Channels_2S.count=4\nTracking_2S.implementation="
-             "GPS_L2_M_DLL_PLL_Tracking\n",
-             "Tracking_2S.implementation=GPS_L2_M_DLL_PLL_Tracking"),
+            ("Channels_1G.count=4\nTracking_1G.implementation="
+             "GLONASS_L1_CA_DLL_PLL_Tracking\n",
+             "Tracking_1G.implementation=GLONASS_L1_CA_DLL_PLL_Tracking"),
             ("Channels_1G.count=4\nTelemetryDecoder_1G.implementation="
              "GLONASS_L1_CA_Telemetry_Decoder\n",
              "TelemetryDecoder_1G.implementation=GLONASS_L1_CA"),
-            ("Channels_B1.count=4\nAcquisition_B1.implementation="
-             "BEIDOU_B1I_PCPS_Acquisition\n",
-             "Acquisition_B1.implementation=BEIDOU_B1I")):
+            ("Channels_B3.count=4\nAcquisition_B3.implementation="
+             "BEIDOU_B3I_PCPS_Acquisition\n",
+             "Acquisition_B3.implementation=BEIDOU_B3I")):
         _, tc = _both(text)
         cfg = tini.receiver_config_from_ini(tc)
         with pytest.raises(NotImplementedError, match=named):
@@ -285,7 +285,7 @@ def test_acquisition_variants_refused_but_e5a_caf():
         with pytest.raises(NotImplementedError, match="acq_variant"):
             trx.Receiver(trx.ReceiverConfig(signal="5X", acq_variant=variant,
                                             **base), device="cpu")
-    for signal in ("2S", "1G", "2G", "B1", "B3"):
+    for signal in ("1G", "2G", "B3"):
         with pytest.raises(NotImplementedError, match="signal"):
             trx.Receiver(trx.ReceiverConfig(signal=signal, **base),
                          device="cpu")

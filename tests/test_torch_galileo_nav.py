@@ -75,7 +75,7 @@ def test_e1_codes_equal_jax():
                                    1.023e6, n, chip_phase=phase,
                                    boc_rate=1.023e6))
     with pytest.raises(NotImplementedError):
-        tcodes.code_chips("2S", 1)
+        tcodes.code_chips("1G", 1)
 
 
 def test_fec_equal_jax():

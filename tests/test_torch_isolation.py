@@ -70,3 +70,22 @@ def test_cli_modules_are_walked():
     names = {m.name for m in pkgutil.walk_packages(gnss_sdr_tpu_torch.__path__,
                                                    "gnss_sdr_tpu_torch.")}
     assert set(CLI_MODULES) <= names, set(CLI_MODULES) - names
+
+
+# the signal slices' host modules (GPS L5 / L2C CNAV, Galileo F/NAV, BeiDou
+# D1): the probe above imports each of them
+SIGNAL_MODULES = (
+    "gnss_sdr_tpu_torch.models.nav.gps_cnav",
+    "gnss_sdr_tpu_torch.models.nav.galileo_fnav",
+    "gnss_sdr_tpu_torch.models.nav.beidou_d1",
+    "gnss_sdr_tpu_torch.receiver.telemetry",
+    "gnss_sdr_tpu_torch.utils.scenario")
+
+
+def test_signal_modules_are_walked():
+    import pkgutil
+
+    import gnss_sdr_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(gnss_sdr_tpu_torch.__path__,
+                                                   "gnss_sdr_tpu_torch.")}
+    assert set(SIGNAL_MODULES) <= names, set(SIGNAL_MODULES) - names

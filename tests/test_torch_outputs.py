@@ -225,8 +225,8 @@ def test_rinex_writers_byte_identical(tmp_path, frozen_clock, version):
         assert ((tmp_path / f"port.{ext}").read_bytes()
                 == (tmp_path / f"jax.{ext}").read_bytes()), ext
     with pytest.raises(NotImplementedError):
-        trinex.RinexNavWriter(tmp_path / "c.nav").write_ephemeris(
-            next(iter(tephs.values())), system="C")
+        trinex.RinexNavWriter(tmp_path / "r.nav").write_ephemeris(
+            next(iter(tephs.values())), system="R")
 
 
 def test_rtcm_encoders_match_jax():

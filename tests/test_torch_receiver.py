@@ -34,11 +34,11 @@ def test_port_scenario_matches_reference():
 
 
 def test_receiver_refuses_unported_fields():
-    for field, value in [("signal", "2S"), ("carrier_kf", True),
+    for field, value in [("signal", "1G"), ("carrier_kf", True),
                          ("tcp_connector", True),
                          ("acq_variant", "e1_8ms"), ("dump_dir", "x"),
                          ("n_mesh_devices", 8),
-                         ("signal_plan", (("1C", 4), ("2S", 4)))]:
+                         ("signal_plan", (("1C", 4), ("1G", 4)))]:
         with pytest.raises(NotImplementedError, match=field):
             Receiver(ReceiverConfig(**{field: value}), device="cpu")
 

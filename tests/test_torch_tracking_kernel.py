@@ -22,7 +22,12 @@ in units of the rtol / atol 1e-4 bound:
     PYTHONPATH=. python tests/test_torch_tracking_kernel.py [SEED ...]
 
 and with ``--profile`` the eager loop's host operations per step and its
-seconds per chunk at the L5 shape (PERF.md's eager-loop profile).
+seconds per chunk at the L5 shape (PERF.md's eager-loop profile); with
+``--profile-against DIR`` the eager loop of one chunk at the L5, GPS L1,
+E1 pilot and L2C shapes, in one process, on this checkout's plain
+correlator, on the plain correlator of the checkout in DIR (the parent
+commit's, say) and on zeros, in turns (least of 5 each), with the
+correlator's share of the chunk.
 """
 
 import ctypes
@@ -326,7 +331,7 @@ def test_cuda_kernel_matches_eager_plain(extended):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m", [1, 2, 4, 8])
-@pytest.mark.parametrize("case", ["gps", "e1_pilot", "e5a_pilot"])
+@pytest.mark.parametrize("case", ["gps", "e1_pilot", "e5a_pilot", "l2c"])
 def test_cuda_kernel_bitwise_at_forced_cluster(case, m):
     """K2 with each channel on a forced cluster of m blocks gives the eager
     loop's (plain correlator) packed rows and carry bit for bit."""
@@ -334,7 +339,8 @@ def test_cuda_kernel_bitwise_at_forced_cluster(case, m):
         pytest.skip("no CUDA device: the kernel runs only on the card")
     dev = torch.device("cuda", 0)
     kw = {"gps": {}, "e1_pilot": dict(signal="1B", pilot=True),
-          "e5a_pilot": dict(signal="5X", pilot=True)}[case]
+          "e5a_pilot": dict(signal="5X", pilot=True),
+          "l2c": dict(signal="2S", n_channels=5)}[case]
     c = scenario.tracking_handoff_case(dev, **kw)
     cfg, state = c["cfg"], c["state"]
     chunk = torch.from_numpy(c["chunk"]).to(dev)
@@ -349,6 +355,38 @@ def test_cuda_kernel_bitwise_at_forced_cluster(case, m):
     torch.cuda.synchronize()
     assert torch.equal(packed.view(torch.int32), ref.view(torch.int32))
     assert torch.equal(carry, tk.pack_carry(ref_state))
+
+
+# GPS L2C (20 ms epochs, n_max 40,064) over one two-chunk dispatch, and
+# BeiDou B1I at 4 MSps, plain and with the NH20 wipe after the extension
+SIGNAL_CASES = {"l2c_two_chunks": dict(signal="2S", chunks=2),
+                "b1i": dict(signal="B1"),
+                "b1i_nh20": dict(signal="B1", extended=True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SIGNAL_CASES))
+def test_cuda_kernel_bitwise_at_l2c_and_b1i(case):
+    """K2 gives the eager loop's (plain correlator) packed rows and carry
+    bit for bit at the GPS L2C and BeiDou B1I shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    dev = torch.device("cuda", 0)
+    c = scenario.tracking_handoff_case(dev, **SIGNAL_CASES[case])
+    cfg, state = c["cfg"], c["state"]
+    chunk = torch.from_numpy(c["chunk"]).to(dev)
+    tables = torch.from_numpy(c["tables"]).to(dev)
+    sec = None if c["sec"] is None else torch.from_numpy(c["sec"]).to(dev)
+    before = tk.launches
+    new, packed = ttrk.track_chunk_packed(cfg, chunk, state, tables, sec)
+    assert tk.launches == before + 1
+    ref_state, out = ttrk.track_chunk(
+        cfg, chunk, state, tables, sec,
+        correlate=correlator.epoch_correlate_plain)
+    ref = ttrk.pack_host_outputs(out, ref_state.loss_of_lock)
+    torch.cuda.synchronize()
+    assert torch.equal(packed.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(tk.pack_carry(new), tk.pack_carry(ref_state))
 
 
 def test_host_edits_on_the_packed_carry():
@@ -489,10 +527,51 @@ def _profile(repeats: int = 3) -> None:
         print(f"  {name}: {n / steps:.1f} per step")
 
 
+def _profile_against(baseline: str, repeats: int = 5) -> None:
+    """The eager loop of one chunk with this checkout's plain correlator,
+    with ``baseline``'s (another checkout's ops/correlator.py, loaded
+    beside this one) and with zeros, in turns, one thread."""
+    import importlib.util
+    import time
+
+    spec = importlib.util.spec_from_file_location(
+        "baseline_correlator", pathlib.Path(baseline) / "gnss_sdr_tpu_torch"
+        / "ops" / "correlator.py")
+    base = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(base)
+    for kw in (dict(signal="L5", n_channels=4),
+               dict(signal="1C", n_channels=8),
+               dict(signal="1B", pilot=True),
+               dict(signal="2S", n_channels=5)):
+        c = scenario.tracking_handoff_case("cpu", **kw)
+        args = (c["cfg"], torch.from_numpy(c["chunk"]), c["state"],
+                torch.from_numpy(c["tables"]))
+        zeros = torch.zeros((c["tables"].shape[0], c["cfg"].n_taps, 2))
+        fns = {"baseline": base.epoch_correlate_plain,
+               "this": correlator.epoch_correlate_plain,
+               "zeros": lambda *a, **k: zeros}
+        best = dict.fromkeys(fns, float("inf"))
+        for name, fn in fns.items():
+            ttrk.track_chunk(*args, correlate=fn)          # warm-up
+        for rep in range(repeats):
+            for name in (fns if rep % 2 == 0 else reversed(list(fns))):
+                t0 = time.perf_counter()
+                ttrk.track_chunk(*args, correlate=fns[name])
+                best[name] = min(best[name], time.perf_counter() - t0)
+        share = {k: (best[k] - best["zeros"]) / best[k]
+                 for k in ("baseline", "this")}
+        print(f"{kw}: chunk_s baseline={best['baseline']:.4f} "
+              f"this={best['this']:.4f} zeros={best['zeros']:.4f} "
+              f"correlator_share baseline={share['baseline']:.3f} "
+              f"this={share['this']:.3f}")
+
+
 if __name__ == "__main__":
     import sys
     if sys.argv[1:] == ["--profile"]:
         _profile()
+    elif sys.argv[1:2] == ["--profile-against"]:
+        _profile_against(sys.argv[2])
     else:
         _readings([int(a) for a in sys.argv[1:]]
                   or [1, 2, 3, 4, 5, 6, 7, 8, 11])
