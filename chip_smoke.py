@@ -36,9 +36,13 @@ Phases, one line each, with their seconds:
             samples, n_max 40,064, 7 steps a chunk), C=5, over two
             consecutive dispatches, the second from the carry K2 wrote;
             (m) BeiDou B1I at 4 MSps with the NH20 wipe after the
-            extension; after the main, hybrid, l5, e5a, dynamic, l2c and
-            b1i phases, the receivers' final carries (channels in
-            NARROW_TRACK). Packed
+            extension; (n) GLONASS L1 C/A at 8 MSps over two consecutive
+            dispatches, each channel at its FDMA slot's IF (slots -7, 0,
+            +6, +3, -2: |IF| up to 3.94 MHz); (o) GLONASS L2 C/A at 6 MSps
+            (slots +6, -7, 0, -4, +2); (p) BeiDou B3I at 12 MSps with the
+            NH20 wipe after the extension; after the main, hybrid, l5, e5a,
+            dynamic, l2c, b1i, glo_l1, glo_l2 and b3i phases, the
+            receivers' final carries (channels in NARROW_TRACK). Packed
             int32 columns, valid, the loss flag and the carry's int / bool
             fields equal; float columns and float carry fields within rtol
             1e-4 / atol 1e-4; the prompt
@@ -47,7 +51,8 @@ Phases, one line each, with their seconds:
             picks. Then GPS L1, the E1 pilot and the E5a pilot handoffs at
             every cluster size m = 1, 2, 4, 8, forced: bit for bit the
             plain version's packed rows and carry, or the phase fails; the
-            same at the L2C shape (C=5).
+            same at the L2C shape (C=5), GLONASS L1 (n) and B3I with NH20
+            (p).
 5. timing   K1 and its plain version at shapes (a) and (b), CUDA events over
             500 launches each after a warm-up, in turns (plain, kernel,
             kernel, plain), beside the bound computed from the shapes; K2
@@ -55,7 +60,9 @@ Phases, one line each, with their seconds:
             pilot shape (C=6 and C=128), GPS L5 (C=4 and C=128) and the
             E5a pilot shape (C=4 and C=128), GPS L5 with the L5Q pilot
             (C=6), E5a data-only (C=4), GPS L2C (C=5 and C=128), BeiDou
-            B1I (C=4 and C=128) and GPS L1 at the dynamic receiver's C=6:
+            B1I (C=4 and C=128), GPS L1 at the dynamic receiver's C=6,
+            GLONASS L1 (C=5 and C=128), GLONASS L2 (C=4) and BeiDou B3I
+            (C=4 and C=128):
             at the chosen cluster size and
             at m=1 in turns, then every m, and the step split into its
             parts (ring fill with the step's barriers, accumulate, reduce,
@@ -120,9 +127,28 @@ Phases, one line each, with their seconds:
             satellites, 30 s at 4 MSps, 48 dB-Hz, seed 91): all tracked,
             >= 4 ephemerides, the last 5 fixes within 2D < 2 m / 3D < 5 m;
             K2 on the final carry; conf/beidou_b1i.conf through the CLI on
-            the first 6 s. Each of phases 11-13 launches K2 once per
-            tracking dispatch and K1 never. The CPU rehearsal runs 3 s of
-            each without the checks or the CLI (the L2C conf's 32-PRN,
+            the first 6 s.
+14. glo_l1, glo_l2
+            tests/test_e2e_glonass.py's and tests/test_e2e_glonass_l2.py's
+            GLONASS scenarios (5 satellites at 8 MSps, seed 97; 4 at 6
+            MSps, seed 96; 48 dB-Hz, the scenario's own duration; each
+            satellite at its FDMA slot's IF), 5 / 4 channels, carrier
+            smoothing 100: all tracked, >= 5 / 4 GNAV ephemerides (tb
+            exact, position within 1 m, velocity within 1e-2 m/s), >= 10
+            fixes whose last 20 average within 2D < 10 m / 3D < 20 m, the
+            L1 receiver's last PDOP < 6; K2 on the final carry; the shipped
+            conf/glonass_l1.conf and conf/glonass_l2.conf through the CLI on
+            4 s of 3 / 2 of the scenario's satellites at the confs' 9 / 6
+            MSps (GLO_CLI: a PRN's antipodal twin shares its slot and code,
+            and the confs search all 24 PRNs).
+15. b3i     tests/test_e2e_beidou_b3.py's BeiDou B3I scenario (4 MEO /
+            IGSO satellites, 30 s at 12 MSps, 48 dB-Hz, seed 88), 4
+            channels: all tracked, >= 4 ephemerides (sqrt_a within 1e-3,
+            toe exact), >= 5 fixes whose last 10 average within 2D < 2 m /
+            3D < 5 m; K2 on the final carry; conf/beidou_b3i.conf through
+            the CLI on the first 4 s. Each of phases 11-15 launches K2 once
+            per tracking dispatch and K1 never. The CPU rehearsal runs 3 s
+            of each without the checks or the CLI (the L2C conf's 32-PRN,
             321-bin search of 80,000-sample windows is a card's work).
 
 The line before the last two is the kernels' JSON record, then the card's
@@ -545,18 +571,27 @@ K2_CASES = (("plain", {}), ("extended", dict(extended=True)),
             ("k_e5a_pilot", dict(signal="5X", pilot=True)),
             # (m) BeiDou B1I at 4 MSps (n_max 4064, 2046-entry tables) with
             # the NH20 wipe over one secondary period after the extension;
-            # GPS L2C's 20 ms windows run in phase_k2_two_dispatches
-            ("m_b1i_nh20", dict(signal="B1", extended=True)))
+            # GPS L2C's 20 ms windows and GLONASS L1's FDMA channels run in
+            # phase_k2_two_dispatches
+            ("m_b1i_nh20", dict(signal="B1", extended=True)),
+            # (o) GLONASS L2 C/A at 6 MSps (n_max 6064, 511-entry tables),
+            # each channel at its slot's IF (+6, -7, 0, -4, +2 x 437.5 kHz);
+            # (p) BeiDou B3I at 12 MSps (n_max 12,064, 10,230-entry tables)
+            # with the NH20 wipe after the extension
+            ("o_glo_l2", dict(signal="2G")),
+            ("p_b3i_nh20", dict(signal="B3", extended=True)))
 
 
 def phase_k2_two_dispatches(name: str, device, **kw) -> dict:
-    """Case (l): two consecutive one-chunk dispatches, the carry K2 wrote
-    for the first fed to the second (the receiver's chunk boundary: each
-    dispatch's window is its chunk plus the halo, the next chunk starts
-    chunk_len later), against the eager loop with the plain correlator
-    doing the same; at GPS L2C's shape (2 MSps, 20 ms code epochs of
-    40,000 samples, n_max 40,064, 7 steps a chunk, the last window of a
-    chunk reaching into its halo) on 5 channels."""
+    """Cases (l) and (n): two consecutive one-chunk dispatches, the carry K2
+    wrote for the first fed to the second (the receiver's chunk boundary:
+    each dispatch's window is its chunk plus the halo, the next chunk
+    starts chunk_len later), against the eager loop with the plain
+    correlator doing the same; at GPS L2C's shape (2 MSps, 20 ms code
+    epochs of 40,000 samples, n_max 40,064, 7 steps a chunk, the last window
+    of a chunk reaching into its halo) on 5 channels, and at GLONASS L1's
+    (8 MSps, n_max 8064, 102 steps) on 6, the live ones at slots -7, 0,
+    +6, +3 and -2 (IFs of -3.94 to +3.38 MHz)."""
     from gnss_sdr_tpu_torch.ops import correlator
     from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
     from gnss_sdr_tpu_torch.receiver import tracking as trk
@@ -609,14 +644,19 @@ def phase_k2(device, with_k16: bool) -> dict:
                                             *k2_case(device, **kw)))
     worst = _worst(worst, phase_k2_two_dispatches(
         "l_l2c_two_dispatches", device, signal="2S", n_channels=5))
+    worst = _worst(worst, phase_k2_two_dispatches(
+        "n_glo_l1_two_dispatches", device, signal="1G"))
     return _worst(worst, phase_k2_two_groups(device))
 
 
 # the forced cluster sizes' cases: GPS L1 C/A, the E1 pilot and the E5a
-# pilot handoffs (6 channels), and GPS L2C's 40,064-sample windows (5)
+# pilot handoffs (6 channels), GPS L2C's 40,064-sample windows (5), GLONASS
+# L1's FDMA channels and B3I with the NH20 wipe (6)
 K2_CLUSTER_CASES = (("plain", {}), ("f_e1_pilot", dict(signal="1B", pilot=True)),
                     ("k_e5a_pilot", dict(signal="5X", pilot=True)),
-                    ("l_l2c", dict(signal="2S", n_channels=5)))
+                    ("l_l2c", dict(signal="2S", n_channels=5)),
+                    ("n_glo_l1", dict(signal="1G")),
+                    ("p_b3i_nh20", dict(signal="B3", extended=True)))
 
 
 def phase_k2_clusters(device) -> None:
@@ -700,7 +740,16 @@ K2_TIMING = (("k2_c8", dict(n_channels=8)), ("k2_c128", dict(n_channels=128)),
              ("k2_b1i_c4", dict(signal="B1", n_channels=4)),
              ("k2_b1i_c128", dict(signal="B1", n_channels=128)),
              # the dynamic receiver's 6 GPS L1 C/A channels
-             ("k2_dyn_c6", dict(n_channels=6)))
+             ("k2_dyn_c6", dict(n_channels=6)),
+             # GLONASS L1 C/A at 8 MSps and L2 C/A at 6 MSps (102 steps of
+             # 8,000 / 6,000 samples, every channel at its slot's IF) and
+             # BeiDou B3I at 12 MSps (102 steps of 12,000), at the
+             # receivers' channel counts and at 128
+             ("k2_glo1_c5", dict(signal="1G", n_channels=5)),
+             ("k2_glo1_c128", dict(signal="1G", n_channels=128)),
+             ("k2_glo2_c4", dict(signal="2G", n_channels=4)),
+             ("k2_b3i_c4", dict(signal="B3", n_channels=4)),
+             ("k2_b3i_c128", dict(signal="B3", n_channels=128)))
 
 # K2 of another checkout (the parent commit's, say), timed at the same
 # shapes in a process of its own: the kernel's own time per launch, in ms,
@@ -1633,6 +1682,7 @@ def run_wideband(device, signal: str, check: bool,
 # ------------------------------------------------- dynamic, l2c and b1i ---
 DYN_VEL_ENU = (12.0, -5.0, 0.0)       # tests/test_e2e_dynamic.py
 L2C_FS, B1I_FS = 2.0e6, 4.0e6
+GLO1_FS, GLO2_FS, B3I_FS = 8.0e6, 6.0e6, 12.0e6
 
 
 def _receiver_run(device, phase: str, sc, x: np.ndarray, fs: float,
@@ -1683,9 +1733,23 @@ def _receiver_run(device, phase: str, sc, x: np.ndarray, fs: float,
 
 
 def _eph_mismatch(rx, sc, tol: float) -> list:
-    return [prn for (_, prn), e in rx.ephemerides.items()
-            if abs(e.sqrt_a - sc.ephemerides[prn].sqrt_a) >= tol
-            or e.toe != sc.ephemerides[prn].toe]
+    """The PRNs whose decoded ephemeris misses the truth: a Kepler one by
+    sqrt_a within ``tol`` and toe exact; a GLONASS state vector (its truth
+    keyed ("R", prn)) by tb exact, position within 1 m and velocity within
+    1e-2 m/s (tests/test_e2e_glonass.py)."""
+    bad = []
+    for (system, prn), e in rx.ephemerides.items():
+        if system == "R":
+            t = sc.ephemerides[("R", prn)]
+            ok = (e.tb_s == t.tb_s
+                  and np.allclose(e.pos_m, t.pos_m, rtol=0, atol=1.0)
+                  and np.allclose(e.vel_m_s, t.vel_m_s, rtol=0, atol=1e-2))
+        else:
+            t = sc.ephemerides[prn]
+            ok = abs(e.sqrt_a - t.sqrt_a) < tol and e.toe == t.toe
+        if not ok:
+            bad.append(prn)
+    return bad
 
 
 def phase_dynamic(device, duration_s: float, check: bool) -> dict:
@@ -1745,60 +1809,118 @@ def phase_dynamic(device, duration_s: float, check: bool) -> dict:
     return dict(run, sc=sc, x=x)
 
 
-# tests/test_e2e_l2c.py's and tests/test_e2e_beidou.py's scenarios, receiver
-# settings and checks: (scenario function, its arguments, seed, receiver
-# settings, sqrt_a tolerance, least ephemerides, fixes averaged, least
-# fixes, 2D and 3D limits in m; L2C's 511.5 kcps chip is 586 m, hence its
-# budget)
+# tests/test_e2e_l2c.py's, tests/test_e2e_beidou.py's,
+# tests/test_e2e_glonass{,_l2}.py's and tests/test_e2e_beidou_b3.py's
+# scenarios, receiver settings and checks: (scenario function, its
+# arguments, seed, receiver settings, sqrt_a tolerance, least ephemerides,
+# fixes averaged, least fixes, 2D and 3D limits in m, the last fix's PDOP
+# limit or None; the 511.5 / 511 kcps chips of L2C and GLONASS are 586 m,
+# hence their budgets). The GLONASS scenarios set their own duration.
 SIGNAL_RUNS = {
     "l2c": ("build_gps_l2c_scenario",
             dict(n_sats=5, cn0_dbhz=45.0, fs=L2C_FS), 77,
             dict(signal="2S", n_channels=5, acq_doppler_max_hz=4000.0,
                  acq_doppler_step_hz=25.0, pll_bw_hz=12.0, dll_bw_hz=0.75,
                  fll_bw_hz=5.0, pll_bw_narrow_hz=8.0, dll_bw_narrow_hz=0.5),
-            1e-3, 5, 20, 5, 10.0, 20.0),
+            1e-3, 5, 20, 5, 10.0, 20.0, None),
     "b1i": ("build_beidou_b1i_scenario",
             dict(n_sats=4, cn0_dbhz=48.0, fs=B1I_FS), 91,
             dict(signal="B1", n_channels=4, acq_doppler_max_hz=5000.0,
                  acq_doppler_step_hz=250.0),
-            1e-4, 4, 5, 3, 2.0, 5.0),
+            1e-4, 4, 5, 3, 2.0, 5.0, None),
+    "glo_l1": ("build_glonass_l1_scenario",
+               dict(n_sats=5, cn0_dbhz=48.0, fs=GLO1_FS), 97,
+               dict(signal="1G", n_channels=5, acq_doppler_max_hz=5000.0,
+                    acq_doppler_step_hz=250.0, carrier_smoothing_factor=100),
+               None, 5, 20, 10, 10.0, 20.0, 6.0),
+    "glo_l2": ("build_glonass_l1_scenario",
+               dict(n_sats=4, cn0_dbhz=48.0, fs=GLO2_FS, band="2G"), 96,
+               dict(signal="2G", n_channels=4, acq_doppler_max_hz=5000.0,
+                    acq_doppler_step_hz=250.0, carrier_smoothing_factor=100),
+               None, 4, 20, 10, 10.0, 20.0, None),
+    "b3i": ("build_beidou_b1i_scenario",
+            dict(n_sats=4, cn0_dbhz=48.0, fs=B3I_FS, band="B3"), 88,
+            dict(signal="B3", n_channels=4, acq_doppler_max_hz=5000.0,
+                 acq_doppler_step_hz=250.0),
+            1e-3, 4, 10, 5, 2.0, 5.0, None),
 }
 
 
-def phase_signal(name: str, device, duration_s: float, check: bool) -> dict:
+def phase_signal(name: str, device, duration_s: float | None,
+                 check: bool) -> dict:
     """``l2c``: tests/test_e2e_l2c.py on the card, 5 GPS L2 CM satellites
     with CNAV (58 s at 2 MSps, 45 dB-Hz, seed 77), 5 channels, that test's
     loop bandwidths; ``b1i``: tests/test_e2e_beidou.py, 4 BeiDou B1I MEO /
     IGSO satellites with D1 under NH20 (30 s at 4 MSps, 48 dB-Hz, seed 91),
-    4 channels. Every satellite tracked, at least 5 / 4 ephemerides equal
-    to the truth (sqrt_a within 1e-3 / 1e-4, toe exact), and at least 5 / 3
-    fixes whose last 20 / 5 average within 2D < 10 m / 3D < 20 m (L2C) or
-    2D < 2 m / 3D < 5 m (B1I)."""
+    4 channels; ``glo_l1`` / ``glo_l2``: tests/test_e2e_glonass{,_l2}.py, 5
+    / 4 GLONASS satellites, each at its FDMA slot's IF, with GNAV (the
+    scenario's own duration at 8 / 6 MSps, 48 dB-Hz, seed 97 / 96), 5 / 4
+    channels, carrier smoothing 100; ``b3i``: tests/test_e2e_beidou_b3.py,
+    4 BeiDou B3I MEO / IGSO satellites (30 s at 12 MSps, seed 88), 4
+    channels. Every satellite tracked, at least the JAX test's number of
+    ephemerides equal to the truth (``_eph_mismatch``), and at least its
+    number of fixes whose last 20 / 5 / 20 / 10 average within 2D < 10 m /
+    3D < 20 m (L2C, GLONASS) or 2D < 2 m / 3D < 5 m (B1I, B3I); GLONASS L1's
+    last fix at PDOP < 6. ``duration_s`` None: the scenario's own."""
     from gnss_sdr_tpu_torch.utils import scenario
 
     (make, kw, seed, rx_kw, tol, n_eph, n_avg, n_fix, lim_2d,
-     lim_3d) = SIGNAL_RUNS[name]
+     lim_3d, pdop) = SIGNAL_RUNS[name]
     t0 = time.perf_counter()
-    sc = getattr(scenario, make)(duration_s=duration_s, **kw)
+    if make == "build_glonass_l1_scenario":
+        sc = getattr(scenario, make)(**kw)
+        if duration_s is not None:
+            sc.duration_s = duration_s
+    else:
+        sc = getattr(scenario, make)(duration_s=duration_s, **kw)
     x = sc.generate(seed=seed, device=device)
-    _line(name, t0, step="generate", samples=len(x), prns=sorted(sc.prns))
+    _line(name, t0, step="generate", samples=len(x), prns=sorted(sc.prns),
+          stream_s=f"{sc.duration_s:.3f}")
     run = _receiver_run(device, name, sc, x, kw["fs"], **rx_kw)
     if check:
         rx = run["rx"]
         wrong = _eph_mismatch(rx, sc, tol)
         err = (_fix_error(rx.fixes[-n_avg:], sc) if len(rx.fixes) >= n_fix
                else (np.inf, np.inf))
+        last_pdop = rx.fixes[-1].pdop if rx.fixes else np.inf
         _line(name, run["t0"], step="checks",
               ephemerides=len(rx.ephemerides), eph_mismatch=wrong,
               fixes=len(rx.fixes), err_2d_m=f"{err[0]:.3f}",
-              err_3d_m=f"{err[1]:.3f}")
+              err_3d_m=f"{err[1]:.3f}", last_pdop=f"{last_pdop:.3f}")
         bad = [what for what, ok in (
             ("tracked", run["tracked"] == sorted(sc.prns)),
             ("ephemerides", len(rx.ephemerides) >= n_eph and not wrong),
-            ("fix", err[0] < lim_2d and err[1] < lim_3d)) if not ok]
+            ("fix", err[0] < lim_2d and err[1] < lim_3d),
+            ("pdop", pdop is None or last_pdop < pdop)) if not ok]
         if bad:
             raise SystemExit(f"{name} phase failed its checks: {bad}")
     return dict(run, sc=sc, x=x)
+
+
+# the GLONASS CLI captures: (band, satellites, seed). The C/A code is one
+# for every slot, so a PRN and its antipodal twin on the same FDMA slot
+# (PRN +- 4 in the slot map) are one signal to the receiver, and the shipped
+# confs search all 24 PRNs: each capture holds as many satellites as leave
+# a channel for every twin (3 on L1's 6 channels, 2 on L2's 5), so every
+# satellite of the capture is tracked whatever order its twins acquire in
+GLO_CLI = {"glonass_l1.conf": ("1G", 3, 97), "glonass_l2.conf": ("2G", 2, 96)}
+
+
+def glonass_cli_capture(device, conf_name: str, fs: float,
+                        seconds: float) -> dict:
+    """``seconds`` of tests/test_e2e_glonass{,_l2}.py's scenario (48 dB-Hz)
+    at the conf's rate ``fs`` with GLO_CLI's satellites."""
+    from gnss_sdr_tpu_torch.utils import scenario
+
+    band, n_sats, seed = GLO_CLI[conf_name]
+    t0 = time.perf_counter()
+    sc = scenario.build_glonass_l1_scenario(n_sats=n_sats, cn0_dbhz=48.0,
+                                            fs=fs, band=band)
+    sc.duration_s = seconds
+    x = sc.generate(seed=seed, device=device)
+    _line("cli", t0, step="generate", run=conf_name.split(".")[0], fs=fs,
+          samples=len(x), prns=sorted(sc.prns))
+    return dict(sc=sc, x=x)
 
 
 def phase_cli_shipped(device, run: dict, conf_name: str, fs: float,
@@ -1934,23 +2056,31 @@ def main(argv=None) -> int:
     for signal in ("L5", "5X"):
         wide[signal] = run_wideband(device, signal, check=True)
         k2_err = _worst(k2_err, wide[signal]["k2_err"])
-    # this slice's receivers: the moving GPS L1 receiver, GPS L2C and
-    # BeiDou B1I, each with K2 on its final carry; the shipped L2C and B1I
-    # confs through the CLI
+    # the later slices' receivers: the moving GPS L1 receiver, GPS L2C,
+    # BeiDou B1I, GLONASS L1 / L2 and BeiDou B3I, each with K2 on its final
+    # carry; the shipped confs through the CLI (GLONASS's on captures of
+    # their own, GLO_CLI)
     runs = {}
     for name, dur, conf, fs, cli_s in (
             ("dynamic", 28.0, None, FS, 0.0),
             ("l2c", 58.0, "gps_l2c.conf", L2C_FS, 8.0),
-            ("b1i", 30.0, "beidou_b1i.conf", B1I_FS, 6.0)):
+            ("b1i", 30.0, "beidou_b1i.conf", B1I_FS, 6.0),
+            ("glo_l1", None, "glonass_l1.conf", 9.0e6, 4.0),
+            ("glo_l2", None, "glonass_l2.conf", GLO2_FS, 4.0),
+            ("b3i", 30.0, "beidou_b3i.conf", B3I_FS, 4.0)):
         run = (phase_dynamic(device, dur, check=True) if name == "dynamic"
                else phase_signal(name, device, dur, check=True))
         k2_err = _worst(k2_err, phase_k2_case(
             f"{name}_final_carry", device,
             *_final_carry_case(run["rx"], run["x"])))
+        cli_run = run
+        if conf in GLO_CLI:
+            del run["x"]
+            cli_run = glonass_cli_capture(device, conf, fs, cli_s)
         runs[name] = dict(k2=run["k2_launches"], k1=run["k1_launches"],
-                          cli_k2=(phase_cli_shipped(device, run, conf, fs,
+                          cli_k2=(phase_cli_shipped(device, cli_run, conf, fs,
                                                     cli_s) if conf else None))
-        del run
+        del run, cli_run
 
     a, k2c8 = timing["a_main_path"], timing_k2["k2_c8"]
     e1p = timing_k2["k2_e1p_c6"]
@@ -2011,11 +2141,12 @@ def main(argv=None) -> int:
         "e5a_pilot_bound_ms": e5at["bound_ms"],
         "e5a_pilot_bound_by": e5at["bound_by"],
         **{f"{name}_launches": r["k2"] for name, r in runs.items()},
-        "cli_l2c_launches": runs["l2c"]["cli_k2"],
-        "cli_b1i_launches": runs["b1i"]["cli_k2"],
+        **{f"cli_{name}_launches": runs[name]["cli_k2"]
+           for name in ("l2c", "b1i", "glo_l1", "glo_l2", "b3i")},
         **{f"{name}_{k}": timing_k2[shape][k]
            for name, shape in (("dynamic", "k2_dyn_c6"), ("l2c", "k2_l2c_c5"),
-                               ("b1i", "k2_b1i_c4"))
+                               ("b1i", "k2_b1i_c4"), ("glo_l1", "k2_glo1_c5"),
+                               ("glo_l2", "k2_glo2_c4"), ("b3i", "k2_b3i_c4"))
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
     }]}

@@ -228,7 +228,8 @@ def validate_conf(conf, plan: list) -> dict:
 # names all select the one engine)
 PORTED_ACQUISITIONS = {n for n, (sig, ov) in ACQUISITIONS.items()
                        if sig == "1C"
-                       or (sig in ("1B", "2S", "L5", "5X", "B1") and not ov)
+                       or (sig in ("1B", "2S", "L5", "5X", "B1", "B3", "1G",
+                                   "2G") and not ov)
                        or ov == {"acq_variant": "e5a_caf"}}
 PORTED_TRACKINGS = {"GPS_L1_CA_DLL_PLL_Tracking",
                     "GPS_L1_CA_DLL_PLL_C_Aid_Tracking",
@@ -236,13 +237,21 @@ PORTED_TRACKINGS = {"GPS_L1_CA_DLL_PLL_Tracking",
                     "GPS_L5_DLL_PLL_Tracking", "GPS_L5i_DLL_PLL_Tracking",
                     "Galileo_E1_DLL_PLL_VEML_Tracking",
                     "Galileo_E5a_DLL_PLL_Tracking",
-                    "BEIDOU_B1I_DLL_PLL_Tracking"}
+                    "GLONASS_L1_CA_DLL_PLL_Tracking",
+                    "GLONASS_L1_CA_DLL_PLL_C_Aid_Tracking",
+                    "GLONASS_L2_CA_DLL_PLL_Tracking",
+                    "GLONASS_L2_CA_DLL_PLL_C_Aid_Tracking",
+                    "BEIDOU_B1I_DLL_PLL_Tracking",
+                    "BEIDOU_B3I_DLL_PLL_Tracking"}
 PORTED_TELEMETRIES = {"GPS_L1_CA_Telemetry_Decoder",
                       "GPS_L2C_Telemetry_Decoder",
                       "GPS_L5_Telemetry_Decoder",
                       "Galileo_E1B_Telemetry_Decoder",
                       "Galileo_E5a_Telemetry_Decoder",
-                      "BEIDOU_B1I_Telemetry_Decoder"}
+                      "GLONASS_L1_CA_Telemetry_Decoder",
+                      "GLONASS_L2_CA_Telemetry_Decoder",
+                      "BEIDOU_B1I_Telemetry_Decoder",
+                      "BEIDOU_B3I_Telemetry_Decoder"}
 PORTED_SOURCES = {"File_Signal_Source"}
 PORTED_INPUT_FILTERS = {"Pass_Through", "Fir_Filter"}
 

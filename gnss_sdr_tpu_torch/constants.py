@@ -21,6 +21,7 @@ GM_EARTH = 3.986005e14          # WGS-84 gravitational constant [m^3/s^2] (GPS v
 GM_EARTH_GAL = 3.986004418e14   # Galileo ICD value
 GM_EARTH_BDS = 3.986004418e14   # BeiDou ICD value
 OMEGA_EARTH_DOT = 7.2921151467e-5      # Earth rotation rate [rad/s]
+OMEGA_EARTH_DOT_GLO = 7.292115e-5      # GLONASS ICD value
 F_REL = -4.442807633e-10        # relativistic clock constant [s/m^0.5]
 PI_GPS = 3.1415926535898        # pi as fixed by IS-GPS-200
 
@@ -130,3 +131,7 @@ SIGNALS: dict[str, SignalSpec] = {
     )
 }
 
+
+def glonass_carrier_hz(spec: SignalSpec, freq_slot: int) -> float:
+    """Carrier frequency for a GLONASS FDMA frequency slot k in [-7, +6]."""
+    return spec.carrier_freq_hz + freq_slot * spec.fdma_step_hz

@@ -136,3 +136,60 @@ class GalileoAlmanac:
 
     def position_velocity(self, t: float):
         return self.to_ephemeris().position_velocity(t)
+
+
+@dataclasses.dataclass
+class GlonassAlmanac:
+    """GNAV almanac for one slot (GLONASS ICD 4.5, strings 6-15 in pairs).
+
+    Keeps the broadcast parameters; ``freq_slot`` (H_n - the FDMA channel)
+    is the operationally-critical field for a warm start: it tells the
+    receiver WHERE in frequency each slot transmits without any tracking.
+    """
+
+    slot: int = 0              # n_A
+    freq_slot: int = 0         # H_n, FDMA channel number k in [-7, 6]
+    health: int = 1            # C_n (1 = healthy)
+    lambda_n: float = 0.0      # [rad] longitude of first ascending node
+    t_lambda: float = 0.0      # [s of day] time of that node passage
+    delta_i: float = 0.0       # [rad] offset from nominal 63 deg
+    ecc: float = 0.0
+    omega_n: float = 0.0       # [rad] argument of perigee
+    delta_t: float = 0.0       # [s] draconitic period offset from 43200 s
+    delta_t_dot: float = 0.0   # [s/orbit]
+    tau_n: float = 0.0         # [s] coarse clock correction
+
+    # nominal GLONASS orbit constants (ICD appendix 3.2.2)
+    I_NOM = np.deg2rad(63.0)
+    T_NOM = 43200.0
+
+    def semi_major_axis(self) -> float:
+        """Axis from the draconitic period (Kepler's third law on the
+        corrected period; the J2 refinement iterates this — the first-order
+        value is within ~25 km, plenty for Doppler prediction)."""
+        t_dr = self.T_NOM + self.delta_t
+        return float((C.GM_EARTH * (t_dr / (2.0 * np.pi)) ** 2) ** (1.0 / 3.0))
+
+    def position_velocity(self, t_sod: float):
+        """Coarse PZ-90 position/velocity at GLONASS seconds-of-day
+        ``t_sod`` — Kepler propagation from the ascending-node epoch with
+        the Earth-fixed node longitude rotated to the evaluation time.
+        Accuracy ~km over hours: amply inside an assisted-acquisition
+        Doppler window (reference: the control thread only needs coarse
+        elevation/Doppler from almanacs)."""
+        a = self.semi_major_axis()
+        # mean anomaly from the ascending node: at the node, the argument
+        # of latitude is 0, so the true anomaly is -omega
+        nu0 = -self.omega_n
+        e0 = 2.0 * np.arctan(np.sqrt((1 - self.ecc) / (1 + self.ecc))
+                             * np.tan(nu0 / 2.0))
+        m_node = e0 - self.ecc * np.sin(e0)
+        kep = KeplerEphemeris(
+            prn=self.slot, toc=self.t_lambda, toe=self.t_lambda,
+            sqrt_a=np.sqrt(a), e=self.ecc, m0=m_node,
+            # Earth-fixed node longitude acts as omega0 with the Earth
+            # rotation folded back out by the standard omega_e * toe term
+            omega0=self.lambda_n + C.OMEGA_EARTH_DOT_GLO * self.t_lambda,
+            omega=self.omega_n, i0=self.I_NOM + self.delta_i,
+            gm=C.GM_EARTH, omega_e=C.OMEGA_EARTH_DOT_GLO)
+        return kep.position_velocity(t_sod)

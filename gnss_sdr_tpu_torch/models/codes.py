@@ -1,15 +1,15 @@
 """PRN spreading-code generators for the ported signals: GPS L1 C/A (and
 the SBAS L1 codes of the same Gold family), GPS L2 CM, GPS L5 I / Q,
 Galileo E1-B / E1-C with the E1-C secondary code CS25, Galileo E5a-I /
-E5a-Q with the E5a-Q secondary codes CS100, and BeiDou B1I.
+E5a-Q with the E5a-Q secondary codes CS100, GLONASS L1 / L2 C/A, and
+BeiDou B1I and B3I.
 
 Host-side (numpy): codes are generated once per channel assignment and shipped
 to the device as float32 tables; the hot path never regenerates them. The
 Galileo memory codes, the L2 CM initial registers, the L5 XB advances and
-the B1I phase assignments come from the port's own copies of their ICD
-tables (``gnss_sdr_tpu_torch/data/icd_tables_{e1,e5a,l2c,l5,b1i}.json``).
-The other signals' generators (and their ICD seed tables) are ported with the
-slices that track those signals.
+the B1I phase assignments and the B3I G2 seeds come from the port's own
+copies of their ICD tables
+(``gnss_sdr_tpu_torch/data/icd_tables_{e1,e5a,l2c,l5,b1i,b3i}.json``).
 
 All generators return chips mapped to +/-1.0 float32 with the convention
 chip = 1 - 2*bit (bit 0 -> +1.0).
@@ -29,7 +29,7 @@ _DATA = pathlib.Path(__file__).resolve().parent.parent / "data"
 @functools.lru_cache(maxsize=1)
 def _tables() -> dict:
     out = {}
-    for part in ("e1", "e5a", "l2c", "l5", "b1i"):
+    for part in ("e1", "e5a", "l2c", "l5", "b1i", "b3i"):
         out.update(json.loads((_DATA / f"icd_tables_{part}.json").read_text()))
     return out
 
@@ -225,7 +225,19 @@ def galileo_e5aq_secondary_code(prn: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# BeiDou B1I  (BDS ICD: Gold codes)
+# GLONASS L1/L2 C/A  (GLONASS ICD: single 511-chip m-sequence for all SVs)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def glonass_ca_code() -> np.ndarray:
+    """511-chip GLONASS C/A m-sequence (x^9 + x^5 + 1), +/-1 float32."""
+    bits = _lfsr(9, (5, 9), 7, 511)
+    return _bits_to_chips(bits)
+
+
+# ---------------------------------------------------------------------------
+# BeiDou B1I / B3I  (BDS ICD: Gold codes)
 # ---------------------------------------------------------------------------
 
 
@@ -255,6 +267,33 @@ def beidou_b1i_code(prn: int) -> np.ndarray:
     return _bits_to_chips(out)
 
 
+def beidou_b3i_code(prn: int) -> np.ndarray:
+    """10230-chip BeiDou B3I code, +/-1 float32.
+
+    13-stage G1 (taps 1,3,4,13) truncated/reset at chip 8190 to state
+    1111111111100-complement per ICD; G2 (taps 1,5,6,7,9,10,12,13) seeded with
+    per-PRN register states.
+    """
+    t = _tables()
+    g2_init = np.array([int(b) for b in t["beidou_b3i_g2_init"][prn - 1]], dtype=np.uint8)
+    n = 10230
+    g1 = np.ones(13, dtype=np.uint8)
+    g2 = g2_init.copy()
+    out = np.empty(n, dtype=np.uint8)
+    for i in range(n):
+        out[i] = g1[12] ^ g2[12]
+        # G1 is short-cycled: when it reaches the listed state it resets to all-ones
+        fb1 = g1[0] ^ g1[2] ^ g1[3] ^ g1[12]
+        g1[1:] = g1[:-1]
+        g1[0] = fb1
+        if (i + 1) % 8190 == 0:
+            g1 = np.ones(13, dtype=np.uint8)
+        fb2 = g2[0] ^ g2[4] ^ g2[5] ^ g2[6] ^ g2[8] ^ g2[9] ^ g2[11] ^ g2[12]
+        g2[1:] = g2[:-1]
+        g2[0] = fb2
+    return _bits_to_chips(out)
+
+
 # ---------------------------------------------------------------------------
 # Dispatch by signal code + sampling helpers
 # ---------------------------------------------------------------------------
@@ -265,7 +304,10 @@ _GENERATORS = {
     "L5": lambda prn: gps_l5i_code(prn),
     "1B": lambda prn: galileo_e1b_code(prn),
     "5X": lambda prn: galileo_e5ai_code(prn),
+    "1G": lambda prn: glonass_ca_code(),
+    "2G": lambda prn: glonass_ca_code(),
     "B1": lambda prn: beidou_b1i_code(prn),
+    "B3": lambda prn: beidou_b3i_code(prn),
 }
 
 
@@ -274,8 +316,7 @@ def code_chips(signal: str, prn: int) -> np.ndarray:
     try:
         gen = _GENERATORS[signal]
     except KeyError:
-        raise NotImplementedError(
-            f"code generator for signal {signal!r} is not ported yet") from None
+        raise ValueError(f"unknown signal code {signal!r}") from None
     return gen(prn)
 
 

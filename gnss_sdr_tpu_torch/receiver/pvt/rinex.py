@@ -4,10 +4,10 @@ Port of gnss_sdr_tpu/receiver/pvt/rinex.py (reference analog:
 ``Rinex_Printer``, ``src/algorithms/PVT/libs/rinex_printer.cc``): the same
 text, byte for byte, for what this port's receiver produces — observables
 (C/L/D/S) of any signal, GPS LNAV / CNAV, Galileo I/NAV / F/NAV and
-BeiDou D1 ephemerides (one Kepler record layout per system; the Galileo
-record's data-source word is the JAX package's, 513, for both). The
-navigation records of other systems (GLONASS, SBAS) raise
-``NotImplementedError`` until their signals are ported.
+BeiDou D1 / D2 ephemerides (one Kepler record layout per system; the Galileo
+record's data-source word is the JAX package's, 513, for both) and GLONASS
+GNAV state-vector records (geph). SBAS GEO records raise
+``NotImplementedError`` until SBAS is ported.
 """
 
 from __future__ import annotations
@@ -213,11 +213,12 @@ class RinexObsReader:
 
 class RinexNavWriter:
     """RINEX 3.02 mixed (or 2.11 GPS) navigation writer for GPS LNAV,
-    Galileo I/NAV and BeiDou D1 records.
+    Galileo I/NAV and BeiDou D1 (Kepler layouts with per-system trailing
+    fields) and GLONASS GNAV state-vector records (geph).
 
     Reference analog: the nav side of ``rinex_printer.cc`` (log_rinex_nav
-    for Gps_Ephemeris / Galileo_Ephemeris / Beidou_Dnav_Ephemeris); other
-    systems' records raise.
+    for Gps_Ephemeris / Galileo_Ephemeris / Glonass_Gnav_Ephemeris /
+    Beidou_Dnav_Ephemeris); SBAS records raise.
     """
 
     def __init__(self, path, version: str = "3.02",
@@ -298,18 +299,30 @@ class RinexNavWriter:
         pad = "   " if self.version.startswith("2") else "    "
         self._f.write(pad + "".join(_f1912(v) for v in vals) + "\n")
 
-    def write_ephemeris(self, eph, system: str = "G") -> None:
-        """Append one GPS LNAV, Galileo I/NAV or BeiDou D1 broadcast record
-        (a KeplerEphemeris)."""
-        if system not in ("G", "E", "C") or hasattr(eph, "tb_s") \
-                or hasattr(eph, "agf0_s"):
+    def write_ephemeris(self, eph, system: str = "G",
+                        glonass_date: datetime.date | None = None) -> None:
+        """Append one broadcast record. ``eph`` is a KeplerEphemeris for
+        G/E/C or a GlonassEphemeris (detected by its ``tb_s`` attribute)
+        for R; ``glonass_date`` gives the UTC date of the geph epoch (the
+        GNAV strings carry only time-of-day)."""
+        if hasattr(eph, "tb_s"):                        # GLONASS geph
+            if self.version.startswith("2"):
+                raise ValueError(
+                    "RINEX 2.11 nav files are GPS-only ('N: GPS NAV DATA');"
+                    " write GLONASS geph to a 3.02 file")
+            self._write_geph(eph, glonass_date)
+            return
+        if hasattr(eph, "agf0_s"):                      # SBAS GEO (MT9)
             raise NotImplementedError(
-                f"RINEX navigation records of system {system!r} "
-                f"({type(eph).__name__}) are not ported yet")
+                "RINEX SBAS GEO navigation records are not ported yet")
         if self.version.startswith("2") and system != "G":
             raise ValueError(
                 f"RINEX 2.11 nav files are GPS-only; system {system!r} "
                 "needs version 3.02")
+        if system not in ("G", "E", "C"):
+            raise ValueError(
+                f"no RINEX nav layout for system {system!r} with a Kepler "
+                "ephemeris (GLONASS needs a GlonassEphemeris record)")
         key = (system, eph.prn, eph.iode, eph.toe)
         if key in self._written:
             return
@@ -338,13 +351,38 @@ class RinexNavWriter:
             self._line(eph.toe, float(eph.iodc))
         self._f.flush()
 
+    def _write_geph(self, g, date: datetime.date | None) -> None:
+        key = ("R", g.slot, g.tb_s)
+        if key in self._written:
+            return
+        self._written.add(key)
+        if not self._wrote_header:
+            self._header()
+        # geph epoch: tb is Moscow time (UTC+3h); RINEX wants UTC
+        utc_sec = (g.tb_s - 10800.0) % 86400.0
+        date = date or datetime.date(2020, 1, 1)
+        hh = int(utc_sec // 3600)
+        mm = int((utc_sec % 3600) // 60)
+        ss = int(utc_sec % 60)
+        # header line: -tau_n, gamma_n, message frame time
+        self._f.write(
+            f"R{g.slot:02d} {date.year:4d} {date.month:02d} {date.day:02d} "
+            f"{hh:02d} {mm:02d} {ss:02d}"
+            f"{_f1912(-g.tau_n)}{_f1912(g.gamma_n)}{_f1912(0.0)}\n")
+        # pos/vel/acc in KM (RINEX geph convention), health / freq slot / age
+        p, v, a = g.pos_m, g.vel_m_s, g.acc_m_s2
+        self._line(p[0] / 1e3, v[0] / 1e3, a[0] / 1e3, float(g.health))
+        self._line(p[1] / 1e3, v[1] / 1e3, a[1] / 1e3, float(g.freq_slot))
+        self._line(p[2] / 1e3, v[2] / 1e3, a[2] / 1e3, 0.0)
+        self._f.flush()
+
     def close(self) -> None:
         self._f.close()
 
 
 class RinexNavReader:
-    """RINEX 3.x mixed / 2.11 navigation reader for GPS LNAV, Galileo I/NAV
-    and BeiDou D1 records.
+    """RINEX 3.x mixed / 2.11 navigation reader for GPS LNAV, Galileo I/NAV,
+    BeiDou D1 and GLONASS geph records.
 
     Reference analog: RTKLIB's ``readrnx`` nav branch (rtklib_rinex).
     Returns a dict keyed (system, prn) -> ephemeris (latest record wins);
@@ -366,6 +404,7 @@ class RinexNavReader:
     def read(self) -> dict:
         from gnss_sdr_tpu_torch import constants as C
         from gnss_sdr_tpu_torch.models.ephemeris import KeplerEphemeris
+        from gnss_sdr_tpu_torch.models.nav.glonass_gnav import GlonassEphemeris
         from gnss_sdr_tpu_torch.receiver.pvt.gpstime import gpsdatetime_to_gps
 
         lines = self.path.read_text().splitlines()
@@ -424,10 +463,20 @@ class RinexNavReader:
                                   int(ln[21:23]))
             a = [float(ln[23 + 19 * k: 23 + 19 * (k + 1)].replace("D", "E"))
                  for k in range(3)]
-            if system not in ("G", "E", "C"):
-                raise NotImplementedError(
-                    f"RINEX navigation records of system {system!r} are not "
-                    f"ported yet")
+            if system == "R":
+                r1 = self._floats(lines[i + 1], 4)
+                r2 = self._floats(lines[i + 2], 4)
+                r3 = self._floats(lines[i + 3], 4)
+                utc_sec = h * 3600 + mi * 60 + s
+                out[("R", prn)] = GlonassEphemeris(
+                    slot=prn, freq_slot=int(r2[3]),
+                    tb_s=(utc_sec + 10800.0) % 86400.0,
+                    pos_m=(r1[0] * 1e3, r2[0] * 1e3, r3[0] * 1e3),
+                    vel_m_s=(r1[1] * 1e3, r2[1] * 1e3, r3[1] * 1e3),
+                    acc_m_s2=(r1[2] * 1e3, r2[2] * 1e3, r3[2] * 1e3),
+                    tau_n=-a[0], gamma_n=a[1], health=int(r1[3]))
+                i += 4
+                continue
             rows = [self._floats(lines[i + k], 4) for k in range(1, 7)]
             tail = self._floats(lines[i + 7], 2) if i + 7 < len(lines) else [0.0, 0.0]
             week = int(rows[4][2])

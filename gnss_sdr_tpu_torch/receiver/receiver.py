@@ -10,13 +10,14 @@ The channel manager mirrors the reference's state machine (idle -> tracking,
 reacquire on loss; gnss_flowgraph.cc:1203-1366).
 
 This port covers the GPS L1 C/A, GPS L2 CM, GPS L5I, Galileo E1-B,
-Galileo E5a-I and BeiDou B1I (MEO / IGSO, D1) receivers, alone or as
-signal groups of one hybrid receiver
+Galileo E5a-I, GLONASS L1 / L2 C/A and BeiDou B1I / B3I (MEO / IGSO D1,
+GEO D2) receivers, alone or as signal groups of one hybrid receiver
 (``signal_plan``, ``group_params``: each group runs its own tracking loop
 on the shared stream; BOC(1,1) VEML tracking and E1-C pilot tracking for
 Galileo E1; L5Q / E5a-Q pilot tracking and the NH10 / CS20 / NH20 wipe
 after symbol sync for the overlaid signals; L2 CM's 20 ms code epochs;
-E5a's noncoherent I/Q CAF acquisition), with the control plane
+E5a's noncoherent I/Q CAF acquisition; GLONASS FDMA, each satellite
+searched and tracked at its frequency slot's IF), with the control plane
 (telecommands, assistance, output sinks) and the rate conditioner of
 ``run_file_source``. Every ``ReceiverConfig`` field of the JAX package
 exists here; a field that selects a feature not yet ported raises
@@ -117,10 +118,7 @@ class ReceiverConfig:
 
 
 # the signals whose codes, tracking and telemetry are ported
-PORTED_SIGNALS = ("1C", "1B", "2S", "L5", "5X", "B1")
-# BeiDou GEO satellites (PRN 1-5) broadcast D2 at 500 bps, whose decoder is
-# not ported: a B1 group leaves them out of its acquisition pool
-BEIDOU_GEO_PRNS = range(1, 6)
+PORTED_SIGNALS = ("1C", "1B", "2S", "L5", "5X", "B1", "B3", "1G", "2G")
 # the acquisition engines ported: PCPS, and Galileo E5a's noncoherent I/Q
 # search with CAF Doppler smoothing
 PORTED_ACQ_VARIANTS = ("pcps", "e5a_caf")
@@ -283,13 +281,6 @@ class SignalGroup:
         self.acq_reps: dict[int, np.ndarray] = {}
         self.acq_reps2: dict[int, tuple] = {}   # e5a_caf replica pairs
         self.acq_pool = list(prns)
-        if self.spec.system == "C":
-            geo = [p for p in prns if p in BEIDOU_GEO_PRNS]
-            if geo:
-                log.warning("BeiDou GEO PRNs %s left out of acquisition: "
-                            "their D2 decoder (beidou_d2) is not ported", geo)
-                self.acq_pool = [p for p in prns
-                                 if p not in BEIDOU_GEO_PRNS]
         self.acq_backoff: dict[int, int] = {}
         # consecutive failed dwells per PRN: retry intervals grow
         # exponentially (5 chunks doubling to a 300-chunk cap)
@@ -314,11 +305,21 @@ class SignalGroup:
                 self.trk_cfg, chunk_len=cl, n_steps=ns)
         return self._trk_cfg_k[k]
 
+    def _slot_offset_hz(self, prn: int) -> float:
+        """A GLONASS satellite's FDMA slot k times the band's step (its
+        offset from the band centre, receiver.py:353-367); 0 for CDMA."""
+        if self.spec.fdma_step_hz > 0.0:
+            slots = self.rx_cfg.glonass_freq_slots
+            return slots[(prn - 1) % len(slots)] * self.spec.fdma_step_hz
+        return 0.0
+
     def if_freq_for(self, prn: int) -> float:
-        return self.rx_cfg.if_freq_hz
+        """Per-satellite IF: the receiver's IF plus the slot's offset."""
+        return self.rx_cfg.if_freq_hz + self._slot_offset_hz(prn)
 
     def carrier_freq_for(self, prn: int) -> float:
-        return self.spec.carrier_freq_hz
+        """Per-satellite RF carrier (the FDMA slot frequency for GLONASS)."""
+        return self.spec.carrier_freq_hz + self._slot_offset_hz(prn)
 
 
 class Receiver:
@@ -614,7 +615,7 @@ class Receiver:
             # `off` is a code-period multiple: the in-chunk code boundary
             delay = code_phases[int(idx)] + off
             doppler = doppler_hz[int(idx)]
-            if g.rx_cfg.acq_two_step:
+            if g.rx_cfg.acq_two_step and g.spec.fdma_step_hz == 0.0:
                 doppler = self._refine_doppler(g, chunk, prn, delay, doppler)
             # honor channel pinning from set_ch_satellite telecommands
             pinned_chs = [c for c in idle if g.pinned.get(c.ch_id) == prn]
@@ -630,10 +631,22 @@ class Receiver:
               spchip: int, nc: int, stride):
         """PCPS over the candidates: per-candidate narrow grids around the
         predicted Dopplers on an assisted warm start (batched into one
-        call), else the full grid."""
+        call); under FDMA each candidate's grid centred on its slot IF, the
+        Doppler reported as the residual from it (receiver.py:798-812);
+        else the full grid."""
         dev = self.device
         cf = torch.from_numpy(
             np.stack([self._code_fft(g, p) for p in candidates])).to(dev)
+        if g.spec.fdma_step_hz > 0.0:
+            centers = np.array([g.if_freq_for(p) for p in candidates],
+                               np.float32)
+            grids = centers[:, None] + dopplers[None, :]
+            res = acq_ops.pcps_search_grids(
+                head_dev, cf, torch.from_numpy(grids).to(dev),
+                fs=self.cfg.fs, samples_per_code=g.spc,
+                samples_per_chip=spchip, noncoherent=nc, stride=stride)
+            return res._replace(doppler_hz=res.doppler_hz.cpu().double()
+                                - torch.from_numpy(centers).double())
         predicted = self._predicted_dopplers(g, candidates)
         if predicted is not None:
             grids = np.stack([

@@ -653,6 +653,119 @@ class GalileoE5aTelemetry:
         return self.assembler.ephemeris()
 
 
+class GlonassL1CaTelemetry:
+    """GLONASS L1 / L2 C/A GNAV telemetry: 1 ms epochs -> 100 sps half-bit
+    stream, time-mark sync, meander stripping, Hamming-checked strings.
+
+    Reference analog: glonass_l1_ca_telemetry_decoder_gs.cc.
+    """
+
+    SLOTS_PER_STRING = 200   # 170 half-bits + 30 time-mark chips, 10 ms each
+
+    def __init__(self, prn: int):
+        from gnss_sdr_tpu_torch.models.nav import glonass_gnav
+        self._gn = glonass_gnav
+        self.prn = prn
+        self._hist = _History()
+        self.assembler = glonass_gnav.GnavAssembler(prn)
+        self._anchor: tuple[int, float] | None = None  # (slot0 epoch, polarity)
+        self._decoded_upto = 0
+        self.string_count = 0
+        self.tow_ref: TowReference | None = None
+        self.tk_ref: tuple[float, int] | None = None   # (tk_s, epoch at string start)
+
+    def push(self, epoch_indices, prompts_i) -> None:
+        if len(epoch_indices) == 0:
+            return
+        self._hist.append(epoch_indices, prompts_i)
+        self._decode()
+
+    def _slots(self, phase: int) -> np.ndarray:
+        """Integrate 1 kHz prompts into 100 sps slots at a given ms phase."""
+        p = self._hist.prompts
+        e0 = int(self._hist.epochs[0])
+        start = (phase - e0) % 10
+        n_slots = (len(p) - start) // 10
+        if n_slots <= 0:
+            return np.zeros(0)
+        return p[start: start + n_slots * 10].reshape(n_slots, 10).sum(axis=1)
+
+    def _decode(self) -> None:
+        gn = self._gn
+        mark_pm = 1.0 - 2.0 * gn.TIME_MARK.astype(np.float64)
+        prompts = self._hist.prompts
+        e0 = int(self._hist.epochs[0])
+        if self._anchor is None:
+            # slot (10 ms) phase FIRST, by integration energy: a time-mark
+            # pattern still sign-matches at a few-ms phase error, so taking
+            # the first matching phase anchored transmit time up to 9 ms
+            # off (integer-ms pseudorange biases); the correct phase
+            # maximizes the mean |10 ms sum| sharply. The pull-in transient
+            # is excluded like _overlay_phase_sync.
+            if len(prompts) < 2400:
+                return
+            skip = 100
+            energies = np.full(10, -1.0)
+            for phase in range(10):
+                start = (phase - (e0 + skip)) % 10 + skip
+                n_slots = (len(prompts) - start) // 10
+                if n_slots < 200:
+                    continue
+                seg = prompts[start: start + n_slots * 10]
+                energies[phase] = float(np.mean(np.abs(
+                    seg.reshape(n_slots, 10).sum(axis=1))))
+            order = np.argsort(-energies)
+            if (energies[order[0]] <= 0
+                    or energies[order[1]] * 1.1 > energies[order[0]]):
+                return                    # ambiguous: wait for more prompts
+            phase = int(order[0])
+            slots = self._slots(phase)
+            s = np.sign(slots)
+            for i in range(len(slots) - 30):
+                c = float(np.dot(s[i: i + 30], mark_pm))
+                if abs(c) >= 28:
+                    pol = 1.0 if c > 0 else -1.0
+                    # string data begins right after the time mark
+                    start_ep = e0 + ((phase - e0) % 10) + (i + 30) * 10
+                    self._anchor = (start_ep, pol)
+                    self._phase = phase
+                    self._decoded_upto = i + 30
+                    break
+            if self._anchor is None:
+                return
+        slots = self._slots(self._phase)
+        start_ep, pol = self._anchor
+        while self._decoded_upto + self.SLOTS_PER_STRING <= len(slots):
+            i = self._decoded_upto
+            seg = pol * slots[i: i + 170]
+            soft_bits = seg[0::2] - seg[1::2]          # meander stripping
+            bits = (soft_bits < 0).astype(np.uint8)    # +amp == bit 0 (chip conv)
+            res = gn.decode_string(bits)
+            if res is not None:
+                sid, fields = res
+                self.assembler.push(sid, fields)
+                self.string_count += 1
+                if sid == 1 and "tk_s" in fields:
+                    string_start_ep = e0 + ((self._phase - e0) % 10) + i * 10
+                    self.tk_ref = (fields["tk_s"], string_start_ep)
+            self._decoded_upto = i + self.SLOTS_PER_STRING
+
+    @property
+    def have_tow(self) -> bool:
+        return self.tk_ref is not None
+
+    def transmit_time(self, epoch: int, chips: float, code_len: int = 511,
+                      code_rate: float = 0.511e6) -> float | None:
+        """GLONASS time of day (Moscow) — caller handles timescale offsets."""
+        if self.tk_ref is None:
+            return None
+        tk, e0 = self.tk_ref
+        return tk + ((epoch - e0) * code_len + chips) / code_rate
+
+    def ephemeris(self):
+        return self.assembler.ephemeris()
+
+
 class BeidouB1ITelemetry:
     """BeiDou B1I D1 telemetry: NH20-modulated 50 bps, BCH-checked subframes.
 
@@ -761,11 +874,112 @@ class BeidouB1ITelemetry:
         return self.assembler.ephemeris()
 
 
+class BeidouB1IGeoTelemetry:
+    """BeiDou B1I / B3I D2 telemetry (GEO PRN 1-5): 500 bps, no NH overlay.
+
+    Reference analog: the D2 branch of beidou_b1i_telemetry_decoder_gs.cc.
+    One bit = 2 code epochs; subframe-1 pages (300 bits / 0.6 s) carry the
+    ephemeris split over ten pages (models/nav/beidou_d2.py).
+    """
+
+    def __init__(self, prn: int):
+        from gnss_sdr_tpu_torch.models.nav import beidou_d2
+        self._d2 = beidou_d2
+        self.prn = prn
+        self.assembler = beidou_d2.D2Assembler(prn)
+        self._hist = _History()
+        self.bit_phase: int | None = None      # epoch phase of bit start
+        self._polarity = 1.0
+        self._anchor: int | None = None        # bit index of a page start
+        self._decoded_upto = 0
+        self.page_count = 0
+        self.tow_ref: TowReference | None = None
+
+    def push(self, epoch_indices, prompts_i) -> None:
+        if len(epoch_indices) == 0:
+            return
+        self._hist.append(epoch_indices, prompts_i)
+        self._decode()
+
+    def _bits(self):
+        p = self._hist.prompts
+        e0 = int(self._hist.epochs[0])
+        if self.bit_phase is None:
+            if len(p) < 600:
+                return None, None
+            best, best_e = None, -1.0
+            for ph in range(2):
+                off = (ph - e0) % 2
+                n_b = (len(p) - off) // 2
+                seg = p[off: off + 2 * n_b].reshape(n_b, 2).sum(axis=1)
+                e = float(np.mean(np.abs(seg)))
+                if e > best_e:
+                    best_e, best = e, ph
+            self.bit_phase = best
+        off = (self.bit_phase - e0) % 2
+        n_b = (len(p) - off) // 2
+        soft = p[off: off + 2 * n_b].reshape(n_b, 2).sum(axis=1)
+        starts = e0 + off + np.arange(n_b, dtype=np.int64) * 2
+        return soft, starts
+
+    def _decode(self) -> None:
+        soft, starts = self._bits()
+        if soft is None:
+            return
+        n = len(soft)
+        pre_pm = 1.0 - 2.0 * self._d2.d1.PREAMBLE.astype(np.float64)
+        if self._anchor is None:
+            for i in range(0, n - 300):
+                c = float(np.dot(np.sign(soft[i: i + 11]), pre_pm))
+                if abs(c) != 11:
+                    continue
+                pol = 1.0 if c > 0 else -1.0
+                bits = ((1 - pol * np.sign(soft[i: i + 300])) // 2
+                        ).astype(np.uint8)
+                if self._d2.decode_page(bits) is None:
+                    continue
+                self._anchor = i
+                self._polarity = pol
+                self._decoded_upto = i
+                break
+            if self._anchor is None:
+                return
+        while self._decoded_upto + 300 <= n:
+            i = self._decoded_upto
+            bits = ((1 - self._polarity * np.sign(soft[i: i + 300])) // 2
+                    ).astype(np.uint8)
+            res = self._d2.decode_page(bits)
+            if res is not None:
+                pnum, sow, fields = res
+                self.assembler.push(pnum, fields)
+                self.page_count += 1
+                # SOW marks page 1 of the 6 s cycle; this page started
+                # 0.6*(pnum-1) later (integer SOW, sub-second page starts)
+                self.tow_ref = TowReference(
+                    tow_s=sow + 0.6 * (pnum - 1), epoch=int(starts[i]),
+                    polarity=int(self._polarity))
+            self._decoded_upto = i + 300
+
+    @property
+    def have_tow(self) -> bool:
+        return self.tow_ref is not None
+
+    def transmit_time(self, epoch: int, chips: float, code_len: int = 2046,
+                      code_rate: float = 2.046e6) -> float | None:
+        """BDT seconds of week."""
+        if self.tow_ref is None:
+            return None
+        de = epoch - self.tow_ref.epoch
+        return self.tow_ref.tow_s + (de * code_len + chips) / code_rate
+
+    def ephemeris(self):
+        return self.assembler.ephemeris()
+
+
 def make_telemetry(signal: str, prn: int):
     """Telemetry decoder factory by signal code (reference:
-    GNSSBlockFactory::GetTlmBlock). GPS L1 C/A LNAV, GPS L2C and L5 CNAV,
-    Galileo E1-B I/NAV, Galileo E5a F/NAV and BeiDou B1I D1 (MEO / IGSO)
-    are ported so far."""
+    GNSSBlockFactory::GetTlmBlock). Every decoder of the JAX package is
+    ported but SBAS L1 (PRN >= 120)."""
     if signal == "1C" and prn < 120:
         return GpsL1CaTelemetry(prn)
     if signal == "1B":
@@ -774,18 +988,13 @@ def make_telemetry(signal: str, prn: int):
         return GpsL2CMTelemetry(prn)
     if signal == "L5":
         return GpsL5ITelemetry(prn)
+    if signal in ("1G", "2G"):
+        return GlonassL1CaTelemetry(prn)
+    if signal in ("B1", "B3"):
+        if prn <= 5:                   # GEO satellites transmit D2 at 500 bps
+            return BeidouB1IGeoTelemetry(prn)
+        return BeidouB1ITelemetry(prn)
     if signal == "5X":
         return GalileoE5aTelemetry(prn)
-    if signal == "B1":
-        if prn <= 5:
-            raise NotImplementedError(
-                f"BeiDou PRN {prn} is a GEO satellite (D2 at 500 bps): its "
-                f"decoder (beidou_d2, BeidouB1IGeoTelemetry) is not ported "
-                f"yet")
-        return BeidouB1ITelemetry(prn)
-    if signal == "B3":
-        raise NotImplementedError(
-            "BeiDou B3I (signal 'B3': its code, the D1 / D2 decoders at "
-            "10.23 Mcps) is not ported yet")
     raise NotImplementedError(
         f"telemetry for signal {signal!r} PRN {prn} is not ported yet")

@@ -12,6 +12,7 @@ against absolute truth.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -324,15 +325,125 @@ def build_gps_l2c_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0
                     spec=spec)
 
 
+def build_glonass_l1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0),
+                              t0_day: float = 40000.12,
+                              fs: float = 8.0e6, n_sats: int = 4,
+                              cn0_dbhz: float = 48.0,
+                              margin_s: float = 7.0,
+                              freq_slots: tuple = (
+                                  1, -4, 5, 6, 1, -4, 5, 6, -2, -7, 0, -1,
+                                  -2, -7, 0, -1, 4, -3, 3, 2, 4, -3, 3, 2),
+                              band: str = "1G") -> Scenario:
+    """GLONASS C/A FDMA scenario (``band`` 1G or 2G): state-vector
+    (PZ-90-style) truth + timing-correct GNAV frames, each satellite at its
+    slot IF (562.5 kHz steps on L1, 437.5 kHz on L2; the C/A code and the
+    GNAV message are identical on both bands).
+
+    Truth ephemerides are GlonassEphemeris state vectors sampled from the
+    Kepler almanac orbits and then propagated with the SAME RK4 model the
+    receiver uses — fully self-consistent. Slots are restricted to
+    |k| <= 5 so all carriers fit inside ``fs`` (|IF| <= 2.81 MHz + code
+    bandwidth < 4 MHz Nyquist at 8 Msps). The stream origin is
+    chosen so the receiver's first full frame starts ~2 s in (ephemeris
+    strings 1-4 arrive within ~10 s). Reference analog: the Channels_1G
+    chain (GLONASS_L1_CA_* adapters, glonass_l1_ca_telemetry_decoder_gs).
+    """
+    from gnss_sdr_tpu_torch.models.nav import glonass_gnav
+
+    spec = constants.SIGNALS[band]
+    assert spec.system == "R", band
+    rcv = geodesy.geodetic_to_ecef(*rcv_llh)
+    # sample visible Kepler-almanac orbits into state vectors
+    kep = constellation.almanac_constellation()
+    t_kref = 352800.0
+    vis = constellation.visible_sats(kep, rcv, t_kref, el_mask_deg=20.0)
+    chosen = [prn for prn, _, _ in vis
+              if prn <= len(freq_slots) and abs(freq_slots[prn - 1]) <= 5]
+    chosen = chosen[:n_sats]
+    if len(chosen) < n_sats:
+        raise RuntimeError(f"only {len(chosen)} usable slots visible")
+
+    # ephemeris epoch tb: the 900 s boundary covering the scenario
+    tb = 900.0 * round(t0_day / 900.0)
+    ephs: dict = {}
+    for prn in chosen:
+        p, v = kep[prn].position_velocity(t_kref + (tb - t0_day))
+        ephs[("R", prn)] = glonass_gnav.GlonassEphemeris(
+            slot=prn, freq_slot=freq_slots[prn - 1], tb_s=tb,
+            pos_m=tuple(p), vel_m_s=tuple(v), acc_m_s2=(0.0, 0.0, 0.0),
+            gamma_n=0.0, tau_n=0.0)
+
+    t_tx0 = {prn: constellation.simulate_observation(
+        ephs[("R", prn)], rcv, t0_day).t_tx_sv for prn in chosen}
+    # frame origin: receiver t=0 lands ~2 s BEFORE a frame boundary, so the
+    # first fully-received frame carries strings 1-4 right after pull-in
+    tk0 = 30.0 * np.floor(min(t_tx0.values()) / 30.0 + 1.0)
+    if tk0 - min(t_tx0.values()) < 3.0:      # leave pull-in time before it
+        tk0 += 30.0
+    duration_s = float((tk0 - min(t_tx0.values())) + 10.0 + margin_s)
+    n_frames = int(np.ceil(duration_s / 30.0)) + 2
+    stream_t0 = tk0 - 30.0       # include one leading frame for sync
+
+    sats_by_if: list[tuple[float, generator.SatParams]] = []
+    for prn in chosen:
+        eph = ephs[("R", prn)]
+        a3, a2, a1, a0 = _fit_t_tx(eph, lambda _t: rcv, t0_day,
+                                   duration_s)
+        k = freq_slots[prn - 1]
+        # the generator couples code rate to doppler/f_center, and the
+        # receiver's velocity model also uses the band-center carrier, so
+        # the sim doppler must be band-center-consistent: using the slot
+        # carrier here would leak a k-proportional code-rate error
+        # (~0.05 chips over 40 s at k=4 = tens of meters of drift)
+        fc = spec.carrier_freq_hz
+        symbols = glonass_gnav.encode_frame_stream(eph, stream_t0,
+                                                   n_frames + 1)
+        sats_by_if.append((k * spec.fdma_step_hz, generator.SatParams(
+            prn=prn, cn0_dbhz=cn0_dbhz,
+            carrier_phase_cycles=_geometric_phase0(fc, a0),
+            doppler_hz=fc * (a1 - 1.0), doppler_rate_hz_s=fc * 2.0 * a2,
+            doppler_jerk_hz_s2=fc * 6.0 * a3,
+            code_delay_s=stream_t0 - a0,
+            data_bits=generator.lnav_bits_to_symbols(symbols))))
+
+    sc = Scenario(rcv_ecef=rcv, rcv_llh=rcv_llh, t0_gps=t0_day,
+                  tow_bits_start=stream_t0, duration_s=duration_s,
+                  fs=fs, ephemerides=ephs, sats=[s for _, s in sats_by_if],
+                  prns=chosen, spec=spec)
+
+    def _generate(seed: int = 0, noise: bool = True,
+                  device=None) -> np.ndarray:
+        # each satellite at its own slot IF: per-sat clean generation + one
+        # shared noise floor (the generator's if_freq is global); the
+        # signal sums on the torch ``device`` (the CPU when None)
+        n = int(round(fs * sc.duration_s))
+        x = np.zeros(n, np.complex64)
+        for f_if, sp in sats_by_if:
+            x = x + generator.generate(spec, [sp], fs, sc.duration_s,
+                                       if_freq_hz=f_if, noise=False,
+                                       device=device)
+        if noise:
+            rng = np.random.default_rng(seed)
+            x = (x + (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                 / np.sqrt(2.0)).astype(np.complex64)
+        return x.astype(np.complex64)
+
+    sc.generate = _generate
+    return sc
+
+
 def build_beidou_b1i_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0),
                               t0_gps: float = 352800.09,
                               duration_s: float = 30.0,
                               fs: float = 4.0e6, n_sats: int = 4,
                               cn0_dbhz: float = 48.0,
                               band: str = "B1") -> Scenario:
-    """BeiDou B1I (MEO/IGSO D1) scenario: NH20 overlay + 6 s subframes (the
-    JAX package's function without its almanac-page option; ``band`` "B3"
-    raises until B3I is ported).
+    """BeiDou B1I/B3I (MEO/IGSO D1) scenario: NH20 overlay + 6 s subframes
+    (the JAX package's function without its almanac-page option).
+
+    ``band`` B3 swaps in the 10.23 Mcps B3I code at 1268.52 MHz (same D1
+    message, same NH20 overlay; reference Channels_B3 /
+    BEIDOU_B3I_* adapters) — use fs > 11 Msps, incommensurate.
 
     Subframes cycle FraID (1,2,3) with per-slot SOW so the ephemeris
     (subframes 1-3, beidou_d1.D1Assembler) completes within ~20 s of NH
@@ -342,10 +453,8 @@ def build_beidou_b1i_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 8
     """
     from gnss_sdr_tpu_torch.models.nav import beidou_d1
 
-    if band != "B1":
-        raise NotImplementedError(
-            f"BeiDou band {band!r}: only B1I is ported (B3I is not yet)")
-    spec = constants.BEIDOU_B1I
+    spec = constants.SIGNALS[band]
+    assert spec.system == "C", band
     ephs = constellation.almanac_constellation()
     for e in ephs.values():
         e.tgd = 0.0
@@ -458,10 +567,53 @@ _HANDOFF_SATS = {
            (21, 3400.0, 1.63e-2), (30, -850.0, 4.1e-3)),
     "B1": ((6, 1300.0, 1.9e-4), (9, -2500.0, 4.6e-4), (14, 570.0, 7.3e-4),
            (27, 3200.0, 9.1e-4), (33, -750.0, 3.2e-4)),
+    "B3": ((7, 1350.0, 2.7e-4), (10, -2450.0, 5.9e-4), (12, 540.0, 8.6e-4),
+           (23, 3050.0, 1.4e-4), (30, -820.0, 4.8e-4)),
+    "1G": ((2, 1250.0, 1.7e-4), (9, -2350.0, 4.9e-4), (11, 610.0, 7.1e-4),
+           (17, 3350.0, 9.3e-4), (22, -780.0, 3.6e-4)),
+    "2G": ((3, 1180.0, 2.4e-4), (10, -2280.0, 5.6e-4), (15, 450.0, 8.2e-4),
+           (18, 3150.0, 1.2e-4), (24, -900.0, 4.1e-4)),
 }
 # default sample rates of tracking_handoff_case (the JAX e2e tests' rates)
 _HANDOFF_FS = {"1C": 2.0e6, "1B": 4.0e6, "L5": 11.0e6, "5X": 12.0e6,
-               "2S": 2.0e6, "B1": 4.0e6}
+               "2S": 2.0e6, "B1": 4.0e6, "B3": 12.0e6, "1G": 8.0e6,
+               "2G": 6.0e6}
+# GLONASS FDMA slots k of the five handoff satellites: both ends of the
+# band (-7, +6) and its centre
+_HANDOFF_SLOTS = {"1G": (-7, 0, 6, 3, -2), "2G": (6, -7, 0, -4, 2)}
+
+
+def _handoff_sats(signal: str) -> list:
+    return [generator.SatParams(prn=p, cn0_dbhz=45.0 + i, doppler_hz=d,
+                                code_delay_s=cd)
+            for i, (p, d, cd) in enumerate(_HANDOFF_SATS[signal])]
+
+
+@functools.lru_cache(maxsize=8)
+def _handoff_chunk(signal: str, fs: float, n: int, seed: int) -> np.ndarray:
+    """The n samples [n, 2] float32 of tracking_handoff_case's satellites
+    (with the pilot where the signal has one), made once per argument set:
+    the cases of one signal, rate and seed share them."""
+    from gnss_sdr_tpu_torch.models import codes
+
+    spec = constants.SIGNALS[signal]
+    sats = _handoff_sats(signal)
+    slots = _HANDOFF_SLOTS.get(signal)
+    if slots is None:
+        x = generator.generate(spec, sats, fs, n / fs, seed=seed,
+                               with_pilot=codes.has_pilot(signal))
+    else:
+        # each satellite at its slot IF on one noise floor, as
+        # build_glonass_l1_scenario sums them
+        x = sum(generator.generate(spec, [sp], fs, n / fs, noise=False,
+                                   if_freq_hz=k * spec.fdma_step_hz)
+                for k, sp in zip(slots, sats))
+        rng = np.random.default_rng(seed)
+        x = x + (rng.standard_normal(n) + 1j * rng.standard_normal(n)) \
+            / np.sqrt(2.0)
+    chunk = np.stack([x.real, x.imag], -1).astype(np.float32)
+    chunk.setflags(write=False)
+    return chunk
 
 
 def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
@@ -473,20 +625,22 @@ def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
     4 MSps, BOC(1,1) tables at 2 entries per chip; "L5": GPS L5I with its
     NH10 overlay and the L5Q pilot at 11 MSps; "5X": Galileo E5a-I with its
     CS20 overlay and the E5a-Q / CS100 pilot at 12 MSps; "2S": GPS L2 CM,
-    one 20 ms code epoch per step, at 2 MSps; "B1": BeiDou B1I with its
-    NH20 overlay at 4 MSps), 45-49 dB-Hz, on
+    one 20 ms code epoch per step, at 2 MSps; "B1" / "B3": BeiDou B1I /
+    B3I with the NH20 overlay at 4 / 12 MSps; "1G" / "2G": GLONASS L1 / L2
+    C/A at 8 / 6 MSps, each satellite at its FDMA slot's IF, slots -7, 0,
+    +6, +3 and -2 on L1, +6, -7, 0, -4 and +2 on L2), 45-49 dB-Hz, on
     ``n_channels`` channels, every channel but the last (idle) handed off to
     satellite ``ch % 5`` slightly off the truth (+15 Hz in code rate, 15 Hz
     steps of Doppler error), over one dispatch of ``chunks`` 100 ms chunks
     plus the halo. ``pilot`` tracks the pilot with a data prompt ([C, 2, Lt]
     tables). ``extended`` switches channel 1 to coherent integration over a
     bit or symbol (20 epochs for GPS L1, 5 for Galileo E1, one secondary
-    code period for L5 / E5a / B1I) and channel 3 (L5 / E5a / B1I on fewer
-    than 5 channels: the last live one) to the same with a secondary-code
-    wipe (a 10-chip code for GPS L1, the E1-C CS25 for Galileo E1, the
-    data component's NH10 / CS20 / NH20 for L5 / E5a / B1I, as the receiver
-    installs it after symbol sync). L2C has no extended case: its symbol is
-    its code epoch.
+    code period for L5 / E5a / B1I / B3I) and channel 3 (on fewer than 5
+    channels: the last live one) to the same with a secondary-code wipe (a
+    10-chip code for GPS L1, the E1-C CS25 for Galileo E1, the data
+    component's NH10 / CS20 / NH20 for L5 / E5a / B1I / B3I, as the
+    receiver installs it after symbol sync). L2C and GLONASS have no
+    extended case.
 
     Returns dict(cfg, chunk [L, 2] float32 numpy, state (the carry on
     ``device``), tables [C, Lt] or [C, 2, Lt] float32 numpy, sec [C, 32]
@@ -503,13 +657,11 @@ def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
         cl = cfg.chunk_len * chunks
         cfg = _dc.replace(cfg, chunk_len=cl, n_steps=int(
             np.ceil(cl / cfg.samples_per_code)) + 2)
-    sats = [generator.SatParams(prn=p, cn0_dbhz=45.0 + i, doppler_hz=d,
-                                code_delay_s=cd)
-            for i, (p, d, cd) in enumerate(_HANDOFF_SATS[signal])]
-    n = cfg.chunk_len + cfg.n_max
-    x = generator.generate(spec, sats, fs, n / fs, seed=seed,
-                           with_pilot=codes.has_pilot(signal))
-    chunk = np.stack([x.real, x.imag], -1).astype(np.float32)
+    sats = _handoff_sats(signal)
+    slots = _HANDOFF_SLOTS.get(signal)
+    # a copy: the cached samples stay as generated
+    chunk = _handoff_chunk(signal, fs, cfg.chunk_len + cfg.n_max,
+                           seed).copy()
     n_ch = n_channels
     state = trk.init_state(n_ch, cfg.n_taps, device=device)
     lt = spec.code_length_chips * cfg.table_rate
@@ -520,6 +672,10 @@ def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
         return np.repeat(chips, 2) * sub if cfg.table_rate == 2 else chips
 
     spc = fs / spec.code_rate_cps
+    # each satellite's tables, made once for the channels that share them
+    data = {sp.prn: table(codes.code_chips(signal, sp.prn)) for sp in sats}
+    pilots = ({sp.prn: table(codes.pilot_code_chips(signal, sp.prn))
+               for sp in sats} if pilot else {})
     for ch in range(n_ch - 1):
         sp = sats[ch % len(sats)]
         start = sp.code_delay_s * fs        # chip 0 of the code at d * fs
@@ -528,18 +684,18 @@ def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
             state, ch, code_freq=spec.code_rate_cps * (
                 1 + (sp.doppler_hz + 15.0) / spec.carrier_freq_hz),
             doppler_hz=sp.doppler_hz + 15.0 * (ch % len(sats) - 2),
-            sample_offset=off, rem_code_phase=float((off - start) / spc))
-        data = table(codes.code_chips(signal, sp.prn))
+            sample_offset=off, rem_code_phase=float((off - start) / spc),
+            if_freq_hz=(0.0 if slots is None else
+                        slots[ch % len(sats)] * spec.fdma_step_hz))
         if pilot:
-            tables[ch, 0] = table(codes.pilot_code_chips(signal, sp.prn))
-            tables[ch, 1] = data
+            tables[ch, 0] = pilots[sp.prn]
+            tables[ch, 1] = data[sp.prn]
         else:
-            tables[ch] = data
+            tables[ch] = data[sp.prn]
     sec = None
     if extended:
-        if signal == "2S":
-            raise ValueError("L2 CM has no extended case: one symbol per "
-                             "code epoch")
+        if signal == "2S" or slots is not None:
+            raise ValueError(f"{signal} has no extended case")
         sec = np.ones((n_ch, cfg.sec_table_len), np.float32)
         if signal == "1C":
             state = trk.set_extension(state, 1, 20, 7)

@@ -23,9 +23,9 @@ the NH20 overlay) in the port against the JAX package, on the CPU:
   observation header, byte for byte with JAX's writers (creation clock
   frozen), and the record read back as JAX reads it;
 - the shipped ``conf/beidou_b1i.conf`` binds as JAX binds it, passes
-  ``check_ported`` and builds a receiver whose pool leaves the GEO PRNs out;
-  GEO PRNs (D2) and ``signal="B3"`` raise ``NotImplementedError`` naming
-  what is missing.
+  ``check_ported`` and builds a receiver whose pool holds the GEO PRNs;
+  GEO PRNs get the D2 decoder, ``signal="B3"`` builds, and SBAS PRNs (the
+  one telemetry still to port) raise ``NotImplementedError``.
 
 The whole B1I chain (30 s of four satellites) is held on the card by
 chip_smoke.py's ``b1i`` phase.
@@ -261,22 +261,25 @@ def test_b1i_telemetry_equal_jax(chunk):
 
 
 def test_geo_and_b3_refused():
-    """GEO PRNs 1-5 broadcast D2 and B3I is a later slice: both raise,
-    naming the part that is missing; a B1 receiver's pool leaves the GEO
-    PRNs out."""
+    """GEO PRNs 1-5 (D2) and B3I were refused before they were ported: now
+    GEO PRNs get the D2 decoder and stay in a B1 receiver's pool, B3 builds
+    its decoder, receiver and scenario; an SBAS PRN (>= 120 on the L1 C/A
+    code, the one telemetry still to port) raises, naming it."""
     for prn in (1, 5):
-        with pytest.raises(NotImplementedError, match="D2"):
-            ttlm.make_telemetry("B1", prn)
-    with pytest.raises(NotImplementedError, match="B3I"):
-        ttlm.make_telemetry("B3", 13)
-    with pytest.raises(NotImplementedError, match="signal"):
-        trx.Receiver(trx.ReceiverConfig(signal="B3", fs=12e6), device="cpu")
-    with pytest.raises(NotImplementedError, match="B3I"):
-        scenario.build_beidou_b1i_scenario(band="B3")
+        assert isinstance(ttlm.make_telemetry("B1", prn),
+                          ttlm.BeidouB1IGeoTelemetry)
+    assert isinstance(ttlm.make_telemetry("B3", 13), ttlm.BeidouB1ITelemetry)
+    g, = trx.Receiver(trx.ReceiverConfig(signal="B3", fs=12e6, n_channels=2),
+                      device="cpu").groups
+    assert g.code_tables.shape == (2, 10230)
+    assert scenario.build_beidou_b1i_scenario(band="B3", fs=12e6
+                                              ).spec.signal == "B3"
     g, = trx.Receiver(trx.ReceiverConfig(signal="B1", fs=4e6, n_channels=4,
                                          prns=(1, 3, 6, 9, 13)),
                       device="cpu").groups
-    assert g.acq_pool == [6, 9, 13]
+    assert g.acq_pool == [1, 3, 6, 9, 13]
+    with pytest.raises(NotImplementedError, match="PRN 120"):
+        ttlm.make_telemetry("1C", 120)
 
 
 # ------------------------------------------------------------------- RINEX
@@ -335,4 +338,4 @@ def test_b1i_conf_binds_and_builds():
     treg.check_ported(tconf, got.signal_plan)
     g, = trx.Receiver(got, device="cpu").groups
     assert g.code_tables.shape == (6, 2046)
-    assert min(g.acq_pool) == 6
+    assert g.acq_pool == list(range(1, 38))

@@ -34,10 +34,10 @@ CONFS = sorted((ROOT / "conf").glob("*.conf"))
 # the port runs it whole
 UNPORTED = {
     "beidou_b1i": None,
-    "beidou_b3i": ("receiver", "signal"),
+    "beidou_b3i": None,
     "galileo_e5a": None,
-    "glonass_l1": ("receiver", "signal"),
-    "glonass_l2": ("receiver", "signal"),
+    "glonass_l1": None,
+    "glonass_l2": None,
     "gps_l2c": None,
     "gps_l5": None,
     "hybrid_gps_galileo": None,
@@ -207,8 +207,9 @@ def test_rate_conditioner_block_lengths_match_jax():
 
 def test_check_ported_galileo_e1_names():
     """The Galileo E1 blocks of this receiver (PCPS acquisition, VEML
-    tracking, the E1-B telemetry decoder) pass; the E1 blocks the port lacks
-    and the GLONASS and BeiDou B3I blocks still raise."""
+    tracking, the E1-B telemetry decoder) pass, and so do the GLONASS and
+    BeiDou B3I blocks; the E1 blocks the port lacks and the other
+    constellations' TCP-connector and Kalman tracking still raise."""
     ok = ("Channels_1B.count=4\n"
           "Acquisition_1B.implementation=Galileo_E1_PCPS_Ambiguous_"
           "Acquisition\n"
@@ -230,19 +231,25 @@ def test_check_ported_galileo_e1_names():
             ("Channels_1B.count=4\nTracking_1B.implementation="
              "Galileo_E1_TCP_CONNECTOR_Tracking\n",
              "Tracking_1B.implementation=Galileo_E1_TCP_CONNECTOR"),
-            ("Channels_1G.count=4\nTracking_1G.implementation="
-             "GLONASS_L1_CA_DLL_PLL_Tracking\n",
-             "Tracking_1G.implementation=GLONASS_L1_CA_DLL_PLL_Tracking"),
-            ("Channels_1G.count=4\nTelemetryDecoder_1G.implementation="
-             "GLONASS_L1_CA_Telemetry_Decoder\n",
-             "TelemetryDecoder_1G.implementation=GLONASS_L1_CA"),
-            ("Channels_B3.count=4\nAcquisition_B3.implementation="
-             "BEIDOU_B3I_PCPS_Acquisition\n",
-             "Acquisition_B3.implementation=BEIDOU_B3I")):
+            ("Channels_1C.count=4\nTracking_1C.implementation="
+             "GPS_L1_CA_TCP_CONNECTOR_Tracking\n",
+             "Tracking_1C.implementation=GPS_L1_CA_TCP_CONNECTOR")):
         _, tc = _both(text)
         cfg = tini.receiver_config_from_ini(tc)
         with pytest.raises(NotImplementedError, match=named):
             treg.check_ported(tc, cfg.signal_plan)
+    for text in ("Channels_1G.count=4\nTracking_1G.implementation="
+                 "GLONASS_L1_CA_DLL_PLL_Tracking\n",
+                 "Channels_1G.count=4\nTelemetryDecoder_1G.implementation="
+                 "GLONASS_L1_CA_Telemetry_Decoder\n",
+                 "Channels_2G.count=4\nTracking_2G.implementation="
+                 "GLONASS_L2_CA_DLL_PLL_C_Aid_Tracking\n",
+                 "Channels_B3.count=4\nAcquisition_B3.implementation="
+                 "BEIDOU_B3I_PCPS_Acquisition\n"):
+        _, tc = _both(text)
+        cfg = tini.receiver_config_from_ini(tc)
+        treg.check_ported(tc, cfg.signal_plan)
+        trx.Receiver(cfg, device="cpu")
 
 
 def test_wideband_confs_bind_and_run():
@@ -276,8 +283,8 @@ def test_wideband_confs_bind_and_run():
 
 
 def test_acquisition_variants_refused_but_e5a_caf():
-    """acq_variant="e5a_caf" runs; the other variants and the unported
-    signals still raise, naming the field."""
+    """acq_variant="e5a_caf" runs; the other variants still raise, naming
+    the field, on GLONASS and B3I too, whose plain PCPS runs."""
     base = dict(fs=12.0e6, n_channels=2, prns=(1, 2))
     trx.Receiver(trx.ReceiverConfig(signal="5X", acq_variant="e5a_caf",
                                     **base), device="cpu")
@@ -286,6 +293,7 @@ def test_acquisition_variants_refused_but_e5a_caf():
             trx.Receiver(trx.ReceiverConfig(signal="5X", acq_variant=variant,
                                             **base), device="cpu")
     for signal in ("1G", "2G", "B3"):
-        with pytest.raises(NotImplementedError, match="signal"):
-            trx.Receiver(trx.ReceiverConfig(signal=signal, **base),
-                         device="cpu")
+        trx.Receiver(trx.ReceiverConfig(signal=signal, **base), device="cpu")
+        with pytest.raises(NotImplementedError, match="acq_variant"):
+            trx.Receiver(trx.ReceiverConfig(signal=signal, acq_variant="tong",
+                                            **base), device="cpu")

@@ -74,8 +74,11 @@ def test_e1_codes_equal_jax():
                 jcodes.sample_code(jcodes.code_chips("1B", prn), 4.0e6,
                                    1.023e6, n, chip_phase=phase,
                                    boc_rate=1.023e6))
-    with pytest.raises(NotImplementedError):
-        tcodes.code_chips("1G", 1)
+    np.testing.assert_array_equal(tcodes.code_chips("1G", 1),
+                                  jcodes.code_chips("1G", 1))
+    for mod in (tcodes, jcodes):
+        with pytest.raises(ValueError, match="unknown signal"):
+            mod.code_chips("XX", 1)
 
 
 def test_fec_equal_jax():

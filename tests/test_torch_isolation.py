@@ -73,11 +73,13 @@ def test_cli_modules_are_walked():
 
 
 # the signal slices' host modules (GPS L5 / L2C CNAV, Galileo F/NAV, BeiDou
-# D1): the probe above imports each of them
+# D1 / D2, GLONASS GNAV): the probe above imports each of them
 SIGNAL_MODULES = (
     "gnss_sdr_tpu_torch.models.nav.gps_cnav",
     "gnss_sdr_tpu_torch.models.nav.galileo_fnav",
     "gnss_sdr_tpu_torch.models.nav.beidou_d1",
+    "gnss_sdr_tpu_torch.models.nav.beidou_d2",
+    "gnss_sdr_tpu_torch.models.nav.glonass_gnav",
     "gnss_sdr_tpu_torch.receiver.telemetry",
     "gnss_sdr_tpu_torch.utils.scenario")
 
@@ -89,3 +91,21 @@ def test_signal_modules_are_walked():
     names = {m.name for m in pkgutil.walk_packages(gnss_sdr_tpu_torch.__path__,
                                                    "gnss_sdr_tpu_torch.")}
     assert set(SIGNAL_MODULES) <= names, set(SIGNAL_MODULES) - names
+
+
+def test_icd_table_copies_equal_jax():
+    """Each of the port's ``data/icd_tables_*.json`` holds entries of the
+    JAX package's ``data/icd_tables.json``, unchanged: the B3I G2 seeds
+    and the GNAV Hamming index sets among them."""
+    import json
+
+    jax_tables = json.loads((ROOT / "gnss_sdr_tpu" / "data"
+                             / "icd_tables.json").read_text())
+    seen = set()
+    for path in sorted((ROOT / "gnss_sdr_tpu_torch" / "data").glob(
+            "icd_tables_*.json")):
+        part = json.loads(path.read_text())
+        for key, value in part.items():
+            assert value == jax_tables[key], (path.name, key)
+        seen |= set(part)
+    assert {"beidou_b3i_g2_init", "glonass_gnav_crc_q"} <= seen

@@ -224,9 +224,16 @@ def test_rinex_writers_byte_identical(tmp_path, frozen_clock, version):
     for ext in ("obs", "nav"):
         assert ((tmp_path / f"port.{ext}").read_bytes()
                 == (tmp_path / f"jax.{ext}").read_bytes()), ext
-    with pytest.raises(NotImplementedError):
-        trinex.RinexNavWriter(tmp_path / "r.nav").write_ephemeris(
-            next(iter(tephs.values())), system="R")
+    # a Kepler record named GLONASS is refused as JAX refuses it (GLONASS
+    # writes GlonassEphemeris geph records); SBAS GEO records are not ported
+    for mod, e in ((trinex, next(iter(tephs.values()))),
+                   (jrinex, next(iter(jephs.values())))):
+        with pytest.raises(ValueError, match="GlonassEphemeris"):
+            mod.RinexNavWriter(tmp_path / "r.nav").write_ephemeris(
+                e, system="R")
+    with pytest.raises(NotImplementedError, match="SBAS"):
+        trinex.RinexNavWriter(tmp_path / "s.nav").write_ephemeris(
+            types.SimpleNamespace(agf0_s=0.0, prn=120), system="S")
 
 
 def test_rtcm_encoders_match_jax():

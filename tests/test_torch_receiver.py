@@ -34,11 +34,19 @@ def test_port_scenario_matches_reference():
 
 
 def test_receiver_refuses_unported_fields():
-    for field, value in [("signal", "1G"), ("carrier_kf", True),
+    """Every signal of the JAX package is ported: GLONASS alone and in a
+    plan with GPS L1 builds, a GLONASS group at its slots; the fields
+    that select what is not ported still raise, naming the field."""
+    rx = Receiver(ReceiverConfig(signal="1G", fs=8e6), device="cpu")
+    assert rx.groups[0].if_freq_for(10) == -7 * 562500.0
+    rx = Receiver(ReceiverConfig(fs=8e6, signal_plan=(("1C", 4), ("1G", 4))),
+                  device="cpu")
+    assert [g.signal for g in rx.groups] == ["1C", "1G"]
+    assert rx.groups[0].if_freq_for(10) == 0.0
+    for field, value in [("carrier_kf", True),
                          ("tcp_connector", True),
                          ("acq_variant", "e1_8ms"), ("dump_dir", "x"),
-                         ("n_mesh_devices", 8),
-                         ("signal_plan", (("1C", 4), ("1G", 4)))]:
+                         ("n_mesh_devices", 8)]:
         with pytest.raises(NotImplementedError, match=field):
             Receiver(ReceiverConfig(**{field: value}), device="cpu")
 
