@@ -52,7 +52,12 @@ Phases, one line each, with their seconds:
             every cluster size m = 1, 2, 4, 8, forced: bit for bit the
             plain version's packed rows and carry, or the phase fails; the
             same at the L2C shape (C=5), GLONASS L1 (n) and B3I with NH20
-            (p).
+            (p). The Kalman carrier loop (K2's KF variants), each case bit
+            for bit (max abs error 0) or the phase fails: (q) GPS L1 at
+            C=8 over two 200 ms dispatches, the second from the carry K2
+            wrote (kf_p / kf_acc included), and at every forced m; (r) GPS
+            L5I at C=4; after the kf phase, (s) its receiver's final carry
+            (the dynamic shape, C=6).
 5. timing   K1 and its plain version at shapes (a) and (b), CUDA events over
             500 launches each after a warm-up, in turns (plain, kernel,
             kernel, plain), beside the bound computed from the shapes; K2
@@ -62,7 +67,9 @@ Phases, one line each, with their seconds:
             (C=6), E5a data-only (C=4), GPS L2C (C=5 and C=128), BeiDou
             B1I (C=4 and C=128), GPS L1 at the dynamic receiver's C=6,
             GLONASS L1 (C=5 and C=128), GLONASS L2 (C=4) and BeiDou B3I
-            (C=4 and C=128):
+            (C=4 and C=128), and the KF variant at GPS L1 C=8 and C=128
+            past pull-in (the KF updating every epoch), in turns with the
+            non-KF variant on the same carry and with the eager loop:
             at the chosen cluster size and
             at m=1 in turns, then every m, and the step split into its
             parts (ring fill with the step's barriers, accumulate, reduce,
@@ -146,9 +153,26 @@ Phases, one line each, with their seconds:
             channels: all tracked, >= 4 ephemerides (sqrt_a within 1e-3,
             toe exact), >= 5 fixes whose last 10 average within 2D < 2 m /
             3D < 5 m; K2 on the final carry; conf/beidou_b3i.conf through
-            the CLI on the first 4 s. Each of phases 11-15 launches K2 once
+            the CLI on the first 4 s.
+16. kf      the Kalman carrier loop: tests/test_tracking.py's Doppler ramp
+            (PRN 5, -300 Hz, 60 Hz/s, 1.5 s at 2.5 MSps) through K2's KF
+            build, one dispatch per 50 ms chunk: no loss of lock, the
+            final carrier within 5 Hz, the rate state within 20 Hz/s of
+            60, carrier lock > 0.85; the dynamic phase's receiver with
+            carrier_kf on its capture: every satellite tracked, >= 4
+            ephemerides, the dynamic budget, one KF launch per dispatch;
+            conf/gps_l1_file.conf with GPS_L1_CA_KF_Tracking through the
+            CLI on 8 s of that capture.
+17. sbas    tests/test_e2e_sbas.py's scenario (5 GPS satellites with
+            broadcast clock errors and SBAS PRN 123 carrying the MT1 mask
+            and MT25 corrections, 30 s at 2 MSps, seed 23), the receiver
+            with the SBAS corrections off and on, its checks: PRN 123
+            tracked, >= 3 messages, the mask, every MT25 daf0 within 2^-31,
+            the last 40 fixes' 3D error e_off > 4 m, e_on < 3.5 m, e_on <
+            e_off / 3. Each of phases 11-17 launches K2 once
             per tracking dispatch and K1 never. The CPU rehearsal runs 3 s
-            of each without the checks or the CLI (the L2C conf's 32-PRN,
+            of each (and of kf and sbas) without the checks or the CLI
+            runs (the L2C conf's 32-PRN,
             321-bin search of 80,000-sample windows is a card's work).
 
 The line before the last two is the kernels' JSON record, then the card's
@@ -361,6 +385,10 @@ K2_RTOL, K2_ATOL = 1e-4, 1e-4
 # float ops of the loop update per channel and step (discriminators, loop
 # filters, C/N0, NCO advance; a count of tracking.py's step, rounded up)
 K2_UPDATE_FLOPS = 150
+# float ops of one Kalman carrier update per channel (ops/kalman.py: the
+# measurement variance with its powf, three 3x3 products of 45 each, the
+# gain and the state estimates; a count, rounded up)
+K2_KF_FLOPS = 185
 
 
 def _tensor(a, device):
@@ -458,9 +486,12 @@ def k2_compare(packed, ref_packed, state, ref_state) -> dict:
                 valid=int((f[..., 8] > 0.5).sum()), bad=bad)
 
 
-def phase_k2_case(name: str, device, cfg, chunk, state, tables, sec) -> dict:
+def phase_k2_case(name: str, device, cfg, chunk, state, tables, sec,
+                  bitwise_only: bool = False) -> dict:
     """K2 (track_chunk_packed on the card) against the eager loop with the
-    plain correlator, from the same carry; returns k2_compare's readings."""
+    plain correlator, from the same carry; returns k2_compare's readings.
+    ``bitwise_only``: the case fails unless K2 gives the plain version's
+    very bits."""
     from gnss_sdr_tpu_torch.ops import correlator
     from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
     from gnss_sdr_tpu_torch.receiver import tracking as trk
@@ -490,6 +521,9 @@ def phase_k2_case(name: str, device, cfg, chunk, state, tables, sec) -> dict:
     if r["bad"]:
         raise SystemExit(f"K2 disagrees with its plain version at {name}: "
                          f"{r['bad']}")
+    if bitwise_only and device.type == "cuda" and not bitwise:
+        raise SystemExit(f"K2 is not bit for bit its plain version at "
+                         f"{name}")
     return r
 
 
@@ -582,7 +616,8 @@ K2_CASES = (("plain", {}), ("extended", dict(extended=True)),
             ("p_b3i_nh20", dict(signal="B3", extended=True)))
 
 
-def phase_k2_two_dispatches(name: str, device, **kw) -> dict:
+def phase_k2_two_dispatches(name: str, device, per_dispatch: int = 1,
+                            bitwise_only: bool = False, **kw) -> dict:
     """Cases (l) and (n): two consecutive one-chunk dispatches, the carry K2
     wrote for the first fed to the second (the receiver's chunk boundary:
     each dispatch's window is its chunk plus the halo, the next chunk
@@ -591,13 +626,16 @@ def phase_k2_two_dispatches(name: str, device, **kw) -> dict:
     epochs of 40,000 samples, n_max 40,064, 7 steps a chunk, the last window
     of a chunk reaching into its halo) on 5 channels, and at GLONASS L1's
     (8 MSps, n_max 8064, 102 steps) on 6, the live ones at slots -7, 0,
-    +6, +3 and -2 (IFs of -3.94 to +3.38 MHz)."""
+    +6, +3 and -2 (IFs of -3.94 to +3.38 MHz); case (q), the Kalman
+    carrier loop at GPS L1 on 8 channels, two dispatches of
+    ``per_dispatch`` chunks each, held bit for bit (``bitwise_only``)."""
     from gnss_sdr_tpu_torch.ops import correlator
     from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
     from gnss_sdr_tpu_torch.receiver import tracking as trk
 
     t0 = time.perf_counter()
-    cfg2, chunk, state, tables, sec = k2_case(device, chunks=2, **kw)
+    cfg2, chunk, state, tables, sec = k2_case(device,
+                                              chunks=2 * per_dispatch, **kw)
     n = cfg2.chunk_len // 2
     cfg = dataclasses.replace(cfg2, chunk_len=n, n_steps=int(
         np.ceil(n / cfg2.samples_per_code)) + 2)
@@ -619,6 +657,9 @@ def phase_k2_two_dispatches(name: str, device, **kw) -> dict:
             packed.view(torch.int32), ref.view(torch.int32)) and torch.equal(
             tk.pack_carry(ks), tk.pack_carry(rs))
         worst = _worst(worst, r)
+        if bitwise_only and device.type == "cuda" and not bitwise:
+            raise SystemExit(f"K2 is not bit for bit its plain version at "
+                             f"{name}, dispatch {i}")
     launched = tk.launches - before
     _line("K2", t0, case=name, C=int(tables.shape[0]), steps=cfg.n_steps,
           n_max=cfg.n_max, dispatches=2,
@@ -659,15 +700,15 @@ K2_CLUSTER_CASES = (("plain", {}), ("f_e1_pilot", dict(signal="1B", pilot=True))
                     ("p_b3i_nh20", dict(signal="B3", extended=True)))
 
 
-def phase_k2_clusters(device) -> None:
-    """K2 at every cluster size m (forced) on K2_CLUSTER_CASES: each launch
-    gives the plain version's bits, packed rows and carry (the split of a
+def phase_k2_clusters(device, cases=K2_CLUSTER_CASES) -> None:
+    """K2 at every cluster size m (forced) on ``cases``: each launch gives
+    the plain version's bits, packed rows and carry (the split of a
     channel's lanes over m blocks keeps the sums' order)."""
     from gnss_sdr_tpu_torch.ops import correlator
     from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
     from gnss_sdr_tpu_torch.receiver import tracking as trk
 
-    for name, kw in K2_CLUSTER_CASES:
+    for name, kw in cases:
         t0 = time.perf_counter()
         cfg, chunk, state, tables, sec = k2_case(device, **kw)
         ref_state, out = trk.track_chunk(
@@ -694,6 +735,32 @@ def phase_k2_clusters(device) -> None:
         if not all(bits.values()):
             raise SystemExit(f"K2 at a forced cluster size is not bit for "
                              f"bit its plain version at {name}: {bits}")
+
+
+def phase_k2_kf(device) -> dict:
+    """The Kalman carrier loop in K2 (its KF variants), every case bit for bit
+    its plain version: (q) GPS L1 at C=8 over two dispatches of 200 ms, the
+    second from the carry K2 wrote (kf_p and kf_acc included; the channels
+    leave pull-in at epoch 100, so ~300 KF updates); (r) GPS L5I at 11
+    MSps, C=4, one 200 ms dispatch (the flag is generic); (q) again at every
+    forced cluster size. The dynamic receiver's KF carry is case (s), after
+    the kf phase."""
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+
+    before = tk.kf_launches
+    worst = phase_k2_two_dispatches(
+        "q_kf_gps_two_dispatches", device, per_dispatch=2,
+        bitwise_only=True, carrier_kf=True, n_channels=8)
+    worst = _worst(worst, phase_k2_case(
+        "r_kf_l5", device, *k2_case(device, signal="L5", n_channels=4,
+                                    chunks=2, carrier_kf=True),
+        bitwise_only=True))
+    if device.type == "cuda":
+        phase_k2_clusters(device, (("q_kf_gps", dict(
+            carrier_kf=True, chunks=2, n_channels=8)),))
+    if device.type == "cuda" and tk.kf_launches == before:
+        raise SystemExit("the KF cases launched no KF variant of K2")
+    return worst
 
 
 def k2_work(cfg, out, n_ch: int, table_len: int, width: int) -> tuple:
@@ -928,6 +995,93 @@ def phase_timing_k2(device, smi: str, baseline=None) -> dict:
                   baseline_turns_ms="/".join(f"{v:.4f}" for v in a + b),
                   kernel_ms=f"{results[name]['ms']:.4f}",
                   m1_ms=f"{results[name]['m1_ms']:.4f}", card=f'"{smi}"')
+    return results
+
+
+# the KF variant's timing shapes: GPS L1 C/A at 2 MSps on the main path's 8
+# channels and at 128, every channel past pull-in (the carry after one
+# dispatch), so the KF updates every epoch
+K2_KF_TIMING = (("k2_kf_c8", 8), ("k2_kf_c128", 128))
+
+
+def phase_timing_kf(device, smi: str) -> dict:
+    """K2's KF variant per 100 ms chunk at K2_KF_TIMING's shapes: the second
+    chunk of a 200 ms handoff, from the carry K2 wrote for the first (the
+    channels in WIDE_TRACK: the KF runs at every boundary), in turns with
+    the non-KF variant on the same carry and chunk (kf, non-KF, non-KF,
+    kf) and with the eager loop with the KF on the plain correlator;
+    the bound adds K2_KF_FLOPS per KF update to k2_work's count."""
+    from gnss_sdr_tpu_torch.ops import correlator
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+
+    results = {}
+    for name, n_ch in K2_KF_TIMING:
+        t0 = time.perf_counter()
+        cfg2, chunk2, state, tables, _ = k2_case(
+            device, chunks=2, n_channels=n_ch, carrier_kf=True)
+        n = cfg2.chunk_len // 2
+        cfg = dataclasses.replace(cfg2, chunk_len=n, n_steps=int(
+            np.ceil(n / cfg2.samples_per_code)) + 2)
+        plain_cfg = dataclasses.replace(cfg, carrier_kf=False)
+        carry, _ = tk.track_chunk_carry(cfg, chunk2[: n + cfg.n_max],
+                                        tk.pack_carry(state), tables)
+        chunk = chunk2[n: 2 * n + cfg.n_max].contiguous()
+        st1 = tk.unpack_carry(carry)
+        carry_out = torch.empty_like(carry)
+        packed = torch.empty((cfg.n_steps, n_ch, tk.PACKED_COLS),
+                             dtype=torch.float32, device=device)
+        kargs = tk.kernel_args(cfg, chunk, carry, tables, None, carry_out,
+                               packed)
+        pargs = tk.kernel_args(plain_cfg, chunk, carry, tables, None,
+                               carry_out, packed)
+
+        def kernel():
+            tk.launch_kernel(kargs)
+
+        def kernel_non_kf():
+            tk.launch_kernel(pargs)
+
+        def plain():
+            st, o = trk.track_chunk(cfg, chunk, st1, tables,
+                                    correlate=correlator.epoch_correlate_plain)
+            trk.pack_host_outputs(o, st.loss_of_lock)
+
+        _time_ms(kernel, 3)                               # warm-up
+        _time_ms(kernel_non_kf, 3)
+        plain()
+        p1 = _time_ms(plain, 1)
+        k_a = _time_ms(kernel, 20)
+        d_a = _time_ms(kernel_non_kf, 20)
+        d_b = _time_ms(kernel_non_kf, 20)
+        k_b = _time_ms(kernel, 20)
+        p2 = _time_ms(plain, 1)
+        _, out = trk.track_chunk(cfg, chunk, st1, tables,
+                                 correlate=correlator.epoch_correlate_plain)
+        nbytes, flops = k2_work(cfg, out, n_ch, tables[0].numel(),
+                                carry.shape[1])
+        # the KF's state is 10 more words a channel each way, counted in
+        # the carry's width already; its updates: every boundary past
+        # pull-in
+        kf_updates = int(((out.state >= trk.WIDE_TRACK) & out.valid)
+                         .sum().item())
+        flops += kf_updates * K2_KF_FLOPS
+        t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+        r = dict(ms=(k_a + k_b) / 2, non_kf_ms=(d_a + d_b) / 2,
+                 plain_ms=(p1 + p2) / 2, cluster=kargs[0].cluster,
+                 bound_ms=max(t_bytes, t_flops) * 1e3,
+                 bound_by="bytes" if t_bytes >= t_flops else "operations",
+                 kf_updates=kf_updates, steps=cfg.n_steps)
+        results[name] = r
+        _line("timing", t0, shape=name, C=n_ch, steps=cfg.n_steps,
+              cluster=r["cluster"], kf_kernel_ms=f"{r['ms']:.4f}",
+              kf_turns_ms=f"{k_a:.4f}/{k_b:.4f}",
+              non_kf_ms=f"{r['non_kf_ms']:.4f}",
+              non_kf_turns_ms=f"{d_a:.4f}/{d_b:.4f}",
+              kf_updates=kf_updates, eager_plain_ms=f"{r['plain_ms']:.3f}",
+              eager_plain_turns_ms=f"{p1:.3f}/{p2:.3f}",
+              bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
+              bytes=int(nbytes), flops=int(flops), card=f'"{smi}"')
     return results
 
 
@@ -1209,6 +1363,8 @@ def _summary(stdout: str) -> dict:
         raise SystemExit(f"no summary line in the CLI's output: {stdout!r}")
     got["tracked"] = [int(v) for v in m.group(1).split(",") if v.strip()]
     got["dispatches"], got["k2"], got["k1"] = map(int, m.groups()[1:])
+    m = re.search(r"tracking_kernel_kf_launches=(\d+)", stdout)
+    got["kf"] = int(m.group(1)) if m else 0
     m = re.search(r"last fix: lat=([-\d.]+) lon=([-\d.]+) h=([-\d.]+) m",
                   stdout)
     if m is not None:
@@ -1698,16 +1854,16 @@ def _receiver_run(device, phase: str, sc, x: np.ndarray, fs: float,
     from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
 
     t0 = time.perf_counter()
-    cfg = ReceiverConfig(fs=fs, prns=tuple(sc.prns), chunk_ms=100,
-                         pvt_apply_tropo=False, pvt_apply_iono=False,
-                         **cfg_kw)
+    cfg_kw.setdefault("prns", tuple(sc.prns))
+    cfg = ReceiverConfig(fs=fs, chunk_ms=100, pvt_apply_tropo=False,
+                         pvt_apply_iono=False, **cfg_kw)
     rx = Receiver(cfg, device=device)
     spent: dict = {}
     _timed(rx, ("_upload", "_run_acquisition", "_dispatch_tracking",
                 "_finish_tracking", "_consume_tracking", "_run_observables"),
            spent)
     correlator.launches = 0
-    tk.launches = 0
+    tk.launches = tk.kf_launches = 0
     rx.run_source(ArraySignalSource(x, fs))
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -1721,15 +1877,15 @@ def _receiver_run(device, phase: str, sc, x: np.ndarray, fs: float,
           tracked=tracked, scenario=sorted(sc.prns),
           steps_per_chunk=g.trk_cfg.n_steps, n_max=g.trk_cfg.n_max,
           dispatches=rx.tracking_dispatches, scan_steps=rx.scan_steps,
-          k2_launches=k2, k1_launches=k1)
+          k2_launches=k2, k2_kf_launches=tk.kf_launches, k1_launches=k1)
     _breakdown(phase, t0, spent, rx)
     if device.type == "cuda" and not (k2 == rx.tracking_dispatches > 0
                                       and k1 == 0):
         raise SystemExit(f"{phase}: K2 launches {k2} != dispatches "
                          f"{rx.tracking_dispatches}, or K1 launched {k1} "
                          f"times")
-    return dict(rx=rx, k2_launches=k2, k1_launches=k1, wall_s=wall,
-                tracked=tracked, t0=t0)
+    return dict(rx=rx, k2_launches=k2, k2_kf_launches=tk.kf_launches,
+                k1_launches=k1, wall_s=wall, tracked=tracked, t0=t0)
 
 
 def _eph_mismatch(rx, sc, tol: float) -> list:
@@ -1750,6 +1906,19 @@ def _eph_mismatch(rx, sc, tol: float) -> list:
         if not ok:
             bad.append(prn)
     return bad
+
+
+def _dyn_checks(rx, sc) -> dict:
+    """tests/test_e2e_dynamic.py's readings of a moving receiver's fixes."""
+    fixes = rx.fixes
+    pos = [np.linalg.norm(f.pos_ecef - sc.rcv_pos_at(f.tow_s - sc.t0_gps))
+           for f in fixes]
+    vel = [np.linalg.norm(f.vel_ecef - sc.rcv_vel_ecef) for f in fixes]
+    return dict(fixes=len(fixes),
+                pos_rmse=float(np.sqrt(np.mean(np.square(pos))))
+                if fixes else float("inf"),
+                vel_rmse=float(np.sqrt(np.mean(np.square(vel))))
+                if fixes else float("inf"))
 
 
 def phase_dynamic(device, duration_s: float, check: bool) -> dict:
@@ -1779,11 +1948,8 @@ def phase_dynamic(device, duration_s: float, check: bool) -> dict:
         fixes = rx.fixes
         if len(fixes) < 5:
             raise SystemExit(f"dynamic: only {len(fixes)} fixes")
-        pos = [np.linalg.norm(f.pos_ecef - sc.rcv_pos_at(f.tow_s - sc.t0_gps))
-               for f in fixes]
-        vel = [np.linalg.norm(f.vel_ecef - sc.rcv_vel_ecef) for f in fixes]
-        pos_rmse = float(np.sqrt(np.mean(np.square(pos))))
-        vel_rmse = float(np.sqrt(np.mean(np.square(vel))))
+        got = _dyn_checks(rx, sc)
+        pos_rmse, vel_rmse = got["pos_rmse"], got["vel_rmse"]
         v_true = float(np.linalg.norm(sc.rcv_vel_ecef))
         speed = float(np.mean([np.linalg.norm(f.vel_ecef)
                                for f in fixes[-5:]]))
@@ -1807,6 +1973,259 @@ def phase_dynamic(device, duration_s: float, check: bool) -> dict:
     if bad:
         raise SystemExit(f"dynamic phase failed its checks: {bad}")
     return dict(run, sc=sc, x=x)
+
+
+# tests/test_tracking.py's Doppler ramp for the Kalman carrier loop: PRN 5
+# at -300 Hz and 60 Hz/s, 44 dB-Hz, 1.5 s at 2.5 MSps, 50 ms chunks
+KF_RAMP = dict(prn=5, fd0=-300.0, rate=60.0, delay_s=0.00025, fs=2.5e6,
+               duration_s=1.5, cn0_dbhz=44.0, seed=41)
+
+
+def phase_kf(device, dyn: dict, check: bool, cli: bool = True) -> dict:
+    """The Kalman carrier loop (``carrier_kf``; K2's KF variants on the card):
+    (1) tests/test_tracking.py's Doppler ramp (KF_RAMP) through
+    track_chunk_packed, one dispatch per 50 ms chunk on the packed carry:
+    no loss of lock, the final carrier within 5 Hz of the ramp, the KF's
+    rate state within 20 Hz/s of 60, the last carrier lock > 0.85; (2) the
+    dynamic phase's receiver, on its capture, with ``carrier_kf``: every
+    satellite tracked, >= 4 ephemerides, the dynamic budget (position RMSE
+    < 10 m, velocity RMSE < 5 m/s), one KF launch per dispatch; K2 case (s)
+    on its final carry, bit for bit; (3) conf/gps_l1_file.conf through the
+    CLI with Tracking_1C.implementation=GPS_L1_CA_KF_Tracking on the first
+    ``KF_CLI_S`` of that capture (``cli``): exit 0, every PRN tracking, one
+    KF launch per dispatch."""
+    from gnss_sdr_tpu_torch import constants
+    from gnss_sdr_tpu_torch.models import codes
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver import tracking as trk
+    from gnss_sdr_tpu_torch.utils import generator
+
+    # (1) the ramp
+    t0 = time.perf_counter()
+    r = KF_RAMP
+    spec = constants.GPS_L1_CA
+    x = generator.generate(
+        spec, [generator.SatParams(prn=r["prn"], cn0_dbhz=r["cn0_dbhz"],
+                                   doppler_hz=r["fd0"],
+                                   doppler_rate_hz_s=r["rate"],
+                                   code_delay_s=r["delay_s"])],
+        r["fs"], r["duration_s"], seed=r["seed"], device=device)
+    xs = torch.from_numpy(np.stack([x.real, x.imag], -1).astype(
+        np.float32)).to(device)
+    cfg = trk.default_config(spec, r["fs"], 50, carrier_kf=True)
+    st = trk.start_channel(
+        trk.init_state(1, cfg.n_taps, device=device), 0,
+        code_freq=1.023e6 * (1 + r["fd0"] / spec.carrier_freq_hz),
+        doppler_hz=r["fd0"] + 30.0,
+        sample_offset=int(round(r["delay_s"] * r["fs"])))
+    carry = tk.pack_carry(st) if device.type == "cuda" else st
+    table = torch.from_numpy(codes.code_chips("1C", r["prn"])[None].astype(
+        np.float32)).to(device)
+    n_chunks = int((len(x) - cfg.n_max) // cfg.chunk_len)
+    before = tk.kf_launches
+    rows = None
+    for k in range(n_chunks):
+        part = xs[k * cfg.chunk_len: (k + 1) * cfg.chunk_len + cfg.n_max]
+        carry, rows = trk.track_chunk_packed(cfg, part, carry, table)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    end = trk.state_to_numpy(carry)
+    f32p, i32p, lol = trk.unpack_host_outputs(rows.cpu().numpy())
+    valid = f32p[:, 0, 8] > 0.5
+    fd_final = r["fd0"] + r["rate"] * (int(end.epoch_count[0]) * 1e-3)
+    ramp = dict(carrier_err_hz=float(end.carrier_freq[0]) - fd_final,
+                kf_acc_hz_s=float(end.kf_acc[0]),
+                last_lock=float(f32p[:, 0, 7][valid][-1]),
+                loss=bool(end.loss_of_lock[0]))
+    kf_ramp = tk.kf_launches - before
+    _line("kf", t0, step="ramp", dispatches=n_chunks, kf_launches=kf_ramp,
+          **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+             for k, v in ramp.items()})
+    bad = [name for name, ok in (
+        ("ramp lock", not ramp["loss"]),
+        ("ramp carrier", abs(ramp["carrier_err_hz"]) < 5.0),
+        ("ramp rate", abs(ramp["kf_acc_hz_s"] - r["rate"]) < 20.0),
+        ("ramp carrier lock", ramp["last_lock"] > 0.85),
+        ("ramp launches", device.type != "cuda" or kf_ramp == n_chunks))
+        if not ok and (check or name == "ramp launches")]
+
+    # (2) the receiver with the KF on the dynamic capture
+    sc, xd = dyn["sc"], dyn["x"]
+    run = _receiver_run(device, "kf", sc, xd, FS, signal="1C", n_channels=6,
+                        acq_doppler_max_hz=5000.0, acq_doppler_step_hz=250.0,
+                        carrier_kf=True)
+    rx = run["rx"]
+    got = _dyn_checks(rx, sc)
+    wrong = _eph_mismatch(rx, sc, 2.0 ** -19)
+    _line("kf", run["t0"], step="checks", fixes=got["fixes"],
+          pos_rmse_m=f"{got['pos_rmse']:.3f}",
+          vel_rmse_m_s=f"{got['vel_rmse']:.3f}",
+          ephemerides=len(rx.ephemerides), eph_mismatch=wrong,
+          kf_launches=run["k2_kf_launches"],
+          dispatches=rx.tracking_dispatches)
+    if device.type == "cuda" and run["k2_kf_launches"] != \
+            rx.tracking_dispatches:
+        bad.append("receiver KF launches")
+    if check:
+        bad += [name for name, ok in (
+            ("tracked", run["tracked"] == sorted(sc.prns)),
+            ("ephemerides", len(rx.ephemerides) >= 4 and not wrong),
+            ("position RMSE", got["pos_rmse"] < 10.0),
+            ("velocity RMSE", got["vel_rmse"] < 5.0)) if not ok]
+    k2_err = phase_k2_case("s_kf_dynamic_final_carry", device,
+                           *_final_carry_case(rx, xd), bitwise_only=True)
+
+    # (3) the KF tracking block through the CLI
+    on_cli = _kf_cli(device, sc, xd, KF_CLI_S) if cli else dict(kf=None)
+    if cli and device.type == "cuda" and not (
+            on_cli["kf"] == on_cli["dispatches"] > 0):
+        bad.append("CLI KF launches")
+    if cli and not set(sc.prns) <= set(on_cli["tracked"]):
+        bad.append("CLI tracked PRNs")
+    if bad:
+        raise SystemExit(f"kf phase failed its checks: {bad}")
+    return dict(kf_launches=run["k2_kf_launches"], ramp_kf_launches=kf_ramp,
+                cli_kf_launches=on_cli["kf"], k2_err=k2_err)
+
+
+KF_CLI_S = 8.0
+
+
+def _kf_cli(device, sc, x: np.ndarray, seconds: float) -> dict:
+    """conf/gps_l1_file.conf at 2 MSps with the KF tracking block, through
+    the CLI on the first ``seconds`` of ``x``, in a temporary directory."""
+    platform = "cuda" if device.type == "cuda" else "cpu"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        _write_ishort(tmp / "capture.ishort", x[: int(seconds * FS)])
+        conf = tmp / "rx.conf"
+        conf.write_text(_conf_from_shipped(tmp / "capture.ishort", {
+            "SignalSource.sampling_frequency": int(FS),
+            "Tracking_1C.implementation": "GPS_L1_CA_KF_Tracking",
+            "PVT.trop_model": "OFF", "PVT.iono_model": "OFF"}))
+        t1 = time.perf_counter()
+        stdout, stderr = _run_cli(conf, platform)
+        cli_s = time.perf_counter() - t1
+        got = _summary(stdout)
+        _line("cli", t0, run="kf", seconds_of_capture=seconds,
+              cli_seconds=f"{cli_s:.3f}", tracked=got["tracked"],
+              scenario=sorted(sc.prns), tracking_dispatches=got["dispatches"],
+              k2_launches=got["k2"], k2_kf_launches=got["kf"],
+              k1_launches=got["k1"],
+              device_line=f"device: {platform}" in stderr)
+        if f"device: {platform}" not in stderr or got["k1"] != 0:
+            raise SystemExit("the KF CLI run failed its checks")
+    return got
+
+
+# tests/test_e2e_sbas.py's scenario: 5 GPS satellites and SBAS PRN 123,
+# 30 s at 2 MSps, 6 channels, carrier smoothing 25, the broadcast clock
+# errors from default_rng(17), seed 23
+SBAS_PRN, SBAS_DUR, SBAS_SEED = 123, 30.0, 23
+
+
+def sbas_capture(device, duration_s: float) -> dict:
+    """tests/test_e2e_sbas.py's capture: the broadcast LNAV clocks off by
+    4-9e-8 s, and an SBAS channel whose MT1 mask and MT25 long-term
+    corrections cancel the errors."""
+    from gnss_sdr_tpu_torch.models.nav import sbas
+    from gnss_sdr_tpu_torch.utils import scenario
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    base = scenario.build_gps_l1_scenario(duration_s=duration_s, n_sats=5,
+                                          cn0_dbhz=47.0, fs=FS)
+    prns = base.prns
+    daf0_err = {p: float(rng.uniform(4e-8, 9e-8)) * (1 if i % 2 else -1)
+                for i, p in enumerate(prns)}
+    bad = {p: dataclasses.replace(base.ephemerides[p],
+                                  af0=base.ephemerides[p].af0 + daf0_err[p])
+           for p in prns}
+    mask_bits = np.zeros(212, np.uint8)
+    for p in prns:
+        mask_bits[p - 1] = 1
+    slots = {p: k + 1 for k, p in enumerate(sorted(prns))}
+    lt = [sbas.LongTermCorrection(mask_no=slots[p], iode=0,
+                                  dpos=(0.0, 0.0, 0.0), daf0=-daf0_err[p])
+          for p in sorted(prns)]
+    halves = [sbas.encode_type25_half(lt[k], lt[k + 1] if k + 1 < len(lt)
+                                      else None)
+              for k in range(0, len(lt), 2)]
+    halves += [np.zeros(106, np.uint8)] * (len(halves) % 2)
+    msgs = [(1, mask_bits)] + [
+        (25, sbas.encode_type25(halves[k], halves[k + 1]))
+        for k in range(0, len(halves), 2)]
+    sc = scenario.build_gps_l1_scenario(
+        duration_s=duration_s, n_sats=5, cn0_dbhz=47.0, fs=FS,
+        broadcast_ephemerides=bad, sbas_prn=SBAS_PRN, sbas_messages=msgs)
+    x = sc.generate(seed=SBAS_SEED, device=device)
+    _line("sbas", t0, step="generate", samples=len(x), prns=sorted(prns),
+          sbas_prn=SBAS_PRN, messages=[m for m, _ in msgs])
+    return dict(sc=sc, x=x, daf0_err=daf0_err)
+
+
+def phase_sbas(device, cap: dict, check: bool) -> dict:
+    """tests/test_e2e_sbas.py on the card: the receiver with the SBAS
+    corrections off and on (6 channels, the scenario's PRNs and 123,
+    carrier smoothing 25). Its checks: PRN 123 tracked, >= 3 messages, the
+    MT1 mask equal to the sorted PRNs, every MT25 daf0 within 2^-31 of
+    minus the injected error, >= 3 fixes each, and the 3D error of the mean
+    of the last 40 fixes e_off > 4 m, e_on < 3.5 m, e_on < e_off / 3; one
+    K2 launch per dispatch."""
+    from gnss_sdr_tpu_torch.receiver.pvt import geodesy
+
+    sc, x, errs = cap["sc"], cap["x"], cap["daf0_err"]
+    lat, lon, _ = sc.rcv_llh
+
+    def err3d(rx):
+        if not rx.fixes:
+            return float("inf")
+        enu = np.stack([geodesy.ecef_to_enu(f.pos_ecef - sc.rcv_ecef, lat,
+                                            lon)
+                        for f in rx.fixes[-40:]]).mean(axis=0)
+        return float(np.linalg.norm(enu))
+
+    runs = {}
+    for apply in (False, True):
+        run = _receiver_run(device, "sbas", sc, x, FS, signal="1C",
+                            n_channels=6,
+                            prns=tuple(list(sc.prns) + [SBAS_PRN]),
+                            carrier_smoothing_factor=25,
+                            pvt_apply_sbas=apply)
+        runs[apply] = run
+    rx = runs[True]["rx"]
+    tlm = next((ch.telemetry for g in rx.groups for ch in g.channels
+                if ch.prn == SBAS_PRN), None)
+    e_off, e_on = err3d(runs[False]["rx"]), err3d(rx)
+    lt_err = max((abs(tlm.long_term[sorted(sc.prns).index(p) + 1].daf0
+                      + errs[p]) if tlm is not None and
+                  sorted(sc.prns).index(p) + 1 in tlm.long_term
+                  else float("inf")) for p in sc.prns)
+    msgs = tlm.message_count if tlm is not None else 0
+    _line("sbas", runs[True]["t0"], step="checks",
+          tracked=runs[True]["tracked"], messages=msgs,
+          mask=tlm.prn_mask if tlm is not None else None,
+          long_term=len(tlm.long_term) if tlm is not None else 0,
+          worst_daf0_err_s=f"{lt_err:.3e}",
+          fixes_off=len(runs[False]["rx"].fixes), fixes_on=len(rx.fixes),
+          e_off_m=f"{e_off:.3f}", e_on_m=f"{e_on:.3f}")
+    bad = []
+    if check:
+        bad = [name for name, ok in (
+            ("tracked", SBAS_PRN in runs[True]["tracked"]),
+            ("messages", msgs >= 3),
+            ("mask", tlm is not None and tlm.prn_mask == sorted(sc.prns)),
+            ("long-term", lt_err <= 2.0 ** -31),
+            ("fixes", len(rx.fixes) >= 3
+             and len(runs[False]["rx"].fixes) >= 3),
+            ("degraded", e_off > 4.0), ("corrected", e_on < 3.5),
+            ("ratio", e_on < e_off / 3.0)) if not ok]
+    if bad:
+        raise SystemExit(f"sbas phase failed its checks: {bad}")
+    return dict(k2_launches=runs[True]["k2_launches"],
+                k1_launches=runs[True]["k1_launches"],
+                dispatches=rx.tracking_dispatches)
 
 
 # tests/test_e2e_l2c.py's, tests/test_e2e_beidou.py's,
@@ -1993,7 +2412,10 @@ def main(argv=None) -> int:
         phase_cli_hybrid(device, cap, hyb, check=False)
         for signal in ("L5", "5X"):
             run_wideband(device, signal, check=False, duration_s=1.0)
-        phase_dynamic(device, 3.0, check=False)
+        phase_k2_kf(device)
+        phase_kf(device, phase_dynamic(device, 3.0, check=False),
+                 check=False, cli=False)
+        phase_sbas(device, sbas_capture(device, 3.0), check=False)
         for name in SIGNAL_RUNS:
             phase_signal(name, device, 3.0, check=False)
         return 0
@@ -2027,8 +2449,10 @@ def main(argv=None) -> int:
     k1_err = phase_k1(device, correlator)
     k2_err = phase_k2(device, with_k16=True)
     phase_k2_clusters(device)
+    kf_err = phase_k2_kf(device)
     timing = phase_timing(device, correlator, smi)
     timing_k2 = phase_timing_k2(device, smi, args.k2_baseline)
+    timing_kf = phase_timing_kf(device, smi)
     k1_own = correlator.launches
     main_run = phase_main(device, 28.0, check_fix=True)
     rx, x = main_run["rx"], main_run["x"]
@@ -2073,6 +2497,10 @@ def main(argv=None) -> int:
         k2_err = _worst(k2_err, phase_k2_case(
             f"{name}_final_carry", device,
             *_final_carry_case(run["rx"], run["x"])))
+        if name == "dynamic":
+            # the Kalman carrier loop on the dynamic capture
+            kf = phase_kf(device, run, check=True)
+            kf_err = _worst(kf_err, kf["k2_err"])
         cli_run = run
         if conf in GLO_CLI:
             del run["x"]
@@ -2082,7 +2510,11 @@ def main(argv=None) -> int:
                                                     cli_s) if conf else None))
         del run, cli_run
 
+    # SBAS L1: tests/test_e2e_sbas.py's corrections off and on
+    sbas = phase_sbas(device, sbas_capture(device, SBAS_DUR), check=True)
+
     a, k2c8 = timing["a_main_path"], timing_k2["k2_c8"]
+    kf8 = timing_kf["k2_kf_c8"]
     e1p = timing_k2["k2_e1p_c6"]
     l5t, e5at = timing_k2["k2_l5_c4"], timing_k2["k2_e5ap_c4"]
     record = {"kernels": [{
@@ -2148,6 +2580,29 @@ def main(argv=None) -> int:
                                ("b1i", "k2_b1i_c4"), ("glo_l1", "k2_glo1_c5"),
                                ("glo_l2", "k2_glo2_c4"), ("b3i", "k2_b3i_c4"))
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "sbas_launches": sbas["k2_launches"],
+        "library_ms": None,
+    }, {
+        "name": "tracking_chunk_kf",
+        "route": "cuda",
+        "source": "gnss_sdr_tpu_torch/csrc/tracking.cu",
+        "replaces": "gnss_sdr_tpu/receiver/tracking.py:432",
+        "kf_branch": "gnss_sdr_tpu/receiver/tracking.py:529",
+        "variant": "track_chunk_kernel<kPilot, kTaps, true>",
+        "launches": kf["kf_launches"],
+        "ramp_launches": kf["ramp_kf_launches"],
+        "cli_launches": kf["cli_kf_launches"],
+        "max_abs_err": kf_err["max_abs_err"],
+        "float_tol_ratio": kf_err["float_tol_ratio"],
+        "prompt_tol_ratio": kf_err["prompt_tol_ratio"],
+        "ms": kf8["ms"],
+        "plain_ms": kf8["plain_ms"],
+        "bound_ms": kf8["bound_ms"],
+        "bound_by": kf8["bound_by"],
+        "non_kf_ms": kf8["non_kf_ms"],
+        "shapes": {name: {k: r[k] for k in (
+            "ms", "non_kf_ms", "cluster", "bound_ms", "bound_by",
+            "plain_ms", "kf_updates")} for name, r in timing_kf.items()},
         "library_ms": None,
     }]}
     print(json.dumps(record))

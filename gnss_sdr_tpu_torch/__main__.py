@@ -155,7 +155,8 @@ def main(argv=None) -> int:
     print(f"tracked PRNs: {sorted(rx.tracked_prns())}; tracking_dispatches="
           f"{rx.tracking_dispatches} tracking_kernel_launches="
           f"{tracking_kernel.launches} multicorrelator_launches="
-          f"{correlator.launches}")
+          f"{correlator.launches} tracking_kernel_kf_launches="
+          f"{tracking_kernel.kf_launches}")
     if n:
         f = rx.fixes[-1]
         print(f"last fix: lat={f.lat_rad*57.29577951308232:.6f} "

@@ -233,6 +233,7 @@ PORTED_ACQUISITIONS = {n for n, (sig, ov) in ACQUISITIONS.items()
                        or ov == {"acq_variant": "e5a_caf"}}
 PORTED_TRACKINGS = {"GPS_L1_CA_DLL_PLL_Tracking",
                     "GPS_L1_CA_DLL_PLL_C_Aid_Tracking",
+                    "GPS_L1_CA_KF_Tracking",
                     "GPS_L2_M_DLL_PLL_Tracking",
                     "GPS_L5_DLL_PLL_Tracking", "GPS_L5i_DLL_PLL_Tracking",
                     "Galileo_E1_DLL_PLL_VEML_Tracking",
@@ -251,7 +252,8 @@ PORTED_TELEMETRIES = {"GPS_L1_CA_Telemetry_Decoder",
                       "GLONASS_L1_CA_Telemetry_Decoder",
                       "GLONASS_L2_CA_Telemetry_Decoder",
                       "BEIDOU_B1I_Telemetry_Decoder",
-                      "BEIDOU_B3I_Telemetry_Decoder"}
+                      "BEIDOU_B3I_Telemetry_Decoder",
+                      "SBAS_L1_Telemetry_Decoder"}
 PORTED_SOURCES = {"File_Signal_Source"}
 PORTED_INPUT_FILTERS = {"Pass_Through", "Fir_Filter"}
 

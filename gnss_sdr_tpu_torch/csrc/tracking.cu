@@ -28,9 +28,12 @@
 //      EMLP / Costas / FLL discriminators, DLL2 / PLL3 loop filters with the
 //      FLL in pull-in, C/N0 and the lock metric, the lock-fail counter and
 //      loss latch, the PULL_IN -> WIDE -> NARROW state machine and the NCO
-//      advance. The update is deterministic, so the blocks need no
-//      broadcast; block 0 alone writes the step's row of the packed [S, C,
-//      13] host outputs (pack_host_outputs' layout). The warp's lanes each
+//      advance; in the KF variants (kKf) also, after the C/N0 estimate, the
+//      Kalman carrier filter's predict and update (kf_step) for channels
+//      past pull-in, whose frequency and phase jump drive the NCO. The
+//      update is deterministic, so the blocks need no broadcast; block 0
+//      alone writes the step's row of the packed [S, C, 13] host outputs
+//      (pack_host_outputs' layout). The warp's lanes each
 //      run one of the update's independent library calls (the three
 //      magnitudes, the two arctangents) and shuffle the results to the
 //      others. One block barrier publishes the next epoch's NCO state.
@@ -118,7 +121,7 @@ enum CarryWord {
   W_CN0_EMA_P2, W_CN0_EMA_I2_MINUS_Q2, W_CN0_EMA_I2_PLUS_Q2, W_EPOCHS_IN_STATE,
   W_EPOCH_COUNT, W_LOCK_FAIL, W_LOSS_OF_LOCK, W_EXT_N, W_EXT_ANCHOR,
   W_SEC_LEN, W_SEC_ANCHOR, W_ACC_DT, W_ACC_CNT, W_KF_ACC, W_IF_FREQ,
-  W_ACC_CORR  // then 2K words of acc_corr, then 9 of kf_p (passed through)
+  W_ACC_CORR  // then 2K words of acc_corr, then 9 of kf_p (row-major)
 };
 
 #define PACKED_COLS 13
@@ -146,7 +149,10 @@ enum CarryWord {
 // and the taps' table components). n_taps counts every tap, the data prompt
 // of pilot tracking included; table_len is one component's length and
 // n_comp the components (1, or 2 under pilot tracking: pilot, data);
-// cluster is m, the blocks per channel.
+// cluster is m, the blocks per channel. The Kalman carrier loop's fields
+// come last: on or off (TrackingConfig.carrier_kf, which picks the kKf
+// variants), its process noise densities and log2(10) as the C library's
+// powf takes it (ops/kalman.py powf_log2).
 struct TrackParams {
   int n_ch, n_steps, n_max, chunk_len, length, table_len, table_rate, n_taps;
   int prompt_index, data_prompt_index, sec_stride, pull_in_epochs;
@@ -157,6 +163,9 @@ struct TrackParams {
   float cn0_min, lock_min, eps20, eps12;
   float taps[GNSS_MAX_TAPS];
   int tap_comp[GNSS_MAX_TAPS];
+  int carrier_kf;
+  float kf_q_phase, kf_q_freq, kf_q_rate;
+  double kf_log2_10;
 };
 
 struct Carry {
@@ -165,6 +174,13 @@ struct Carry {
   float rem, code_freq, carrier_freq, frac, dll1, pll1, pll2;
   float prev_i, prev_q, e_abs_i, e_p2, e_mq, e_pq, acc_dt, if_freq;
   float acc[2 * GNSS_MAX_TAPS];
+};
+
+// A channel's carry in a kernel variant: the Kalman carrier loop's words
+// (kf_acc, the covariance kf_p) only where the variant runs the KF update.
+template <bool kKf> struct ChannelCarry : Carry {};
+template <> struct ChannelCarry<true> : Carry {
+  float kf_acc, kf_p[9];
 };
 
 // The NCO state of the next epoch, published to the block. wrap: every
@@ -230,6 +246,105 @@ __device__ __forceinline__ float atan32(float x) {
   return copysignf(y, x);
 }
 
+// glibc's powf(x, y) for y log2(x) = ylogx in float64 (ops/kalman.py
+// pow32): 2^(k/32) from the table times a cubic in the remainder, every
+// float64 operation rounded as the plain version's separate ones.
+__constant__ unsigned long long kExp2Tab[32] = {
+    0x3ff0000000000000ull, 0x3fefd9b0d3158574ull, 0x3fefb5586cf9890full,
+    0x3fef9301d0125b51ull, 0x3fef72b83c7d517bull, 0x3fef54873168b9aaull,
+    0x3fef387a6e756238ull, 0x3fef1e9df51fdee1ull, 0x3fef06fe0a31b715ull,
+    0x3feef1a7373aa9cbull, 0x3feedea64c123422ull, 0x3feece086061892dull,
+    0x3feebfdad5362a27ull, 0x3feeb42b569d4f82ull, 0x3feeab07dd485429ull,
+    0x3feea47eb03a5585ull, 0x3feea09e667f3bcdull, 0x3fee9f75e8ec5f74ull,
+    0x3feea11473eb0187ull, 0x3feea589994cce13ull, 0x3feeace5422aa0dbull,
+    0x3feeb737b0cdc5e5ull, 0x3feec49182a3f090ull, 0x3feed503b23e255dull,
+    0x3feee89f995ad3adull, 0x3feeff76f2fb5e47ull, 0x3fef199bdd85529cull,
+    0x3fef3720dcef9069ull, 0x3fef5818dcfba487ull, 0x3fef7c97337b9b5full,
+    0x3fefa4afa2a490daull, 0x3fefd0765b6e4540ull};
+
+__device__ __forceinline__ float pow32(double logx, float y) {
+  const double shift = 0x1.8p+47;
+  const double ylogx = __dmul_rn((double)y, logx);
+  const double kd = __dsub_rn(__dadd_rn(ylogx, shift), shift);
+  const double r = __dsub_rn(ylogx, kd);
+  const long long k = (long long)__dmul_rn(kd, 32.0);
+  const double s = __longlong_as_double(
+      (long long)(kExp2Tab[k & 31] + ((unsigned long long)k << 47)));
+  const double z = __dadd_rn(__dmul_rn(0x1.c6af84b912394p-5, r),
+                             0x1.ebfce50fac4f3p-3);
+  const double r2 = __dmul_rn(r, r);
+  const double q = __dadd_rn(__dmul_rn(0x1.62e42ff0c52d6p-1, r), 1.0);
+  return (float)__dmul_rn(__dadd_rn(__dmul_rn(z, r2), q), s);
+}
+
+// [3][3] a @ b as ops/kalman.py _mm3: each entry's products in index order,
+// the second and third fused
+__device__ __forceinline__ void mm3(const float a[3][3], const float b[3][3],
+                                    float out[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float m = __fmul_rn(a[i][0], b[0][k]);
+      m = fma32(a[i][1], b[1][k], m);
+      out[i][k] = fma32(a[i][2], b[2][k], m);
+    }
+}
+
+// One predict + update of the carrier KF (ops/kalman.py
+// phase_meas_var_cyc2 and kf_update, op for op) on the channel's
+// covariance `p` [9] and rate `accel`, at NCO frequency `freq`, Costas
+// error `pe` [cycles], interval `dt` and C/N0 estimate `cn0_est`: the new
+// covariance into `p_new`, the frequency, rate and phase-jump estimates.
+__device__ void kf_step(const TrackParams& prm, const float* p, float accel,
+                        float freq, float pe, float dt, float cn0_est,
+                        float* p_new, float& f_hat, float& a_hat,
+                        float& phi_hat) {
+  // measurement variance [cycles^2] at this C/N0 and max(dt, 1e-4)
+  const float coh = clamp_min_f(dt, 1e-4f);
+  const float cl =
+      isnan(cn0_est) ? cn0_est : fminf(fmaxf(cn0_est, 10.0f), 60.0f);
+  const float cn0 = pow32(prm.kf_log2_10, __fmul_rn(cl, 0.1f));
+  const float two_snr = __fmul_rn(__fmul_rn(cn0, coh), 2.0f);
+  const float var = __fdiv_rn(__fadd_rn(__fdiv_rn(1.0f, two_snr), 1.0f),
+                              two_snr);
+  // 1 / (4 pi^2) as the float32 reciprocal of float32(4 pi^2)
+  const float r = __fmul_rn(var, 0.025330296f);
+
+  const float h = __fmul_rn(__fmul_rn(dt, 0.5f), dt);
+  const float f[3][3] = {{1.0f, dt, h}, {0.0f, 1.0f, dt}, {0.0f, 0.0f, 1.0f}};
+  const float ft[3][3] = {{1.0f, 0.0f, 0.0f}, {dt, 1.0f, 0.0f}, {h, dt, 1.0f}};
+  float pm[3][3], fp[3][3], pp[3][3];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) pm[i / 3][i % 3] = p[i];
+  mm3(f, pm, fp);
+  mm3(fp, ft, pp);
+  pp[0][0] = fma32(dt, prm.kf_q_phase, pp[0][0]);
+  pp[1][1] = __fadd_rn(pp[1][1], __fmul_rn(dt, prm.kf_q_freq));
+  pp[2][2] = fma32(dt, prm.kf_q_rate, pp[2][2]);
+
+  const float a_half_dt = __fmul_rn(__fmul_rn(accel, 0.5f), dt);
+  const float phi_pred = __fmul_rn(a_half_dt, dt);
+  const float f_pred = fma32(accel, dt, freq);
+  const float s = __fadd_rn(pp[0][0], r);
+  const float k0 = __fdiv_rn(pp[0][0], s), k1 = __fdiv_rn(pp[1][0], s),
+              k2 = __fdiv_rn(pp[2][0], s);
+  const float y = __fsub_rn(pe, phi_pred);
+  const float y_fused = fma32(-a_half_dt, dt, pe);
+  phi_hat = fma32(k0, y, phi_pred);
+  f_hat = fma32(k1, y_fused, f_pred);
+  a_hat = fma32(k2, y_fused, accel);
+
+  const float ikh[3][3] = {{__fsub_rn(1.0f, k0), 0.0f, 0.0f},
+                           {__fsub_rn(0.0f, k1), 1.0f, 0.0f},
+                           {__fsub_rn(0.0f, k2), 0.0f, 1.0f}};
+  float pn[3][3];
+  mm3(ikh, pp, pn);
+#pragma unroll
+  for (int i = 0; i < 9; ++i)
+    p_new[i] = __fmul_rn(__fadd_rn(pn[i / 3][i % 3], pn[i % 3][i / 3]), 0.5f);
+}
+
 // The start of an epoch: sample count, validity and NCO steps (tracking.py
 // track_chunk, the first lines of each step), and whether the window's code
 // indices allow the compare-and-add floor-mod.
@@ -263,8 +378,9 @@ __device__ void plan_epoch(const Carry& c, const TrackParams& p,
 // the results are shuffled to every lane; lane 0 writes the new carry once
 // every lane has read the old one. kTaps / kPilot: the tap set, which fixes
 // the prompt's index (0: p.n_taps and p.prompt_index at run time).
-template <int kTaps, bool kPilot>
-__device__ __forceinline__ void update_epoch(Carry& c, const TrackParams& p,
+template <int kTaps, bool kPilot, bool kKf>
+__device__ __forceinline__ void update_epoch(ChannelCarry<kKf>& c,
+                                             const TrackParams& p,
                                              const EpochPlan& e,
                                              const float* corr,
                                              const float* sec_row, float* row,
@@ -354,15 +470,15 @@ __device__ __forceinline__ void update_epoch(Carry& c, const TrackParams& p,
                           0.0f)));
   const float pll_out =
       __fadd_rn(pll1, __fmul_rn(__fmul_rn(w0p, p.b3), phase_err));
-  const float new_pll1 = in_pullin ? fll_freq : pll1;
-  const float new_pll2 = in_pullin ? 0.0f : pll2;
+  float new_pll1 = in_pullin ? fll_freq : pll1;
+  float new_pll2 = in_pullin ? 0.0f : pll2;
   // DLL2
   const float w0 = __fmul_rn(dll_bw, p.inv_dll_w0);
   const float dll1 = __fadd_rn(
       c.dll1, __fmul_rn(__fmul_rn(dt_eff, __fmul_rn(w0, w0)), code_err));
   const float code_cmd =
       __fadd_rn(dll1, __fmul_rn(__fmul_rn(w0, p.a2), code_err));
-  const float new_carrier_freq = in_pullin ? fll_freq : pll_out;
+  float new_carrier_freq = in_pullin ? fll_freq : pll_out;
 
   // ---- C/N0 and lock detectors ----
   const float a = p.cn0_alpha;
@@ -381,6 +497,23 @@ __device__ __forceinline__ void update_epoch(Carry& c, const TrackParams& p,
   const float snr = __fdiv_rn(pd, pn);
   const float cn0_est = __fmul_rn(
       log10f(clamp_min_f(__fdiv_rn(snr, dt_cn0), p.eps12)), 10.0f);
+
+  // ---- Kalman carrier tracking (the kKf variants) ----
+  bool kf_on = false;
+  float kf_dphi = 0.0f;
+  float kf_p[9], kf_acc = 0.0f;
+  if constexpr (kKf) {
+    kf_on = boundary && c.state >= WIDE_TRACK;
+    if (kf_on) {
+      float f_kf;
+      kf_step(p, c.kf_p, c.kf_acc, c.carrier_freq, phase_err, dt_eff,
+              cn0_est, kf_p, f_kf, kf_acc, kf_dphi);
+      if (!in_pullin) new_carrier_freq = f_kf;
+      // keep the PLL carry synced so a fallback starts cleanly
+      new_pll1 = new_carrier_freq;
+      new_pll2 = 0.0f;
+    }
+  }
 
   const float doppler = __fsub_rn(new_carrier_freq, c.if_freq);
   const float new_code_freq =
@@ -404,8 +537,9 @@ __device__ __forceinline__ void update_epoch(Carry& c, const TrackParams& p,
   eis = (promote_wide || promote_narrow) ? 0 : eis;
 
   // ---- NCO phase / offset advance ----
-  const float tot =
-      fma32(__fmul_rn(c.carrier_freq, p.inv_fs), n_samp_f, c.frac);
+  float tot = fma32(__fmul_rn(c.carrier_freq, p.inv_fs), n_samp_f, c.frac);
+  // the KF's phase-error transfer: the NCO phase jumps by it
+  if constexpr (kKf) tot = __fadd_rn(tot, kf_dphi);
   const float whole = floorf(tot);
   const float new_frac = __fsub_rn(tot, whole);
   const int new_cycles = c.cycles + (int)whole;
@@ -457,6 +591,13 @@ __device__ __forceinline__ void update_epoch(Carry& c, const TrackParams& p,
     c.lock_fail = new_lock_fail;
     c.loss = loss;
   }
+  if constexpr (kKf) {
+    if (kf_on) {
+      c.kf_acc = kf_acc;
+#pragma unroll
+      for (int i = 0; i < 9; ++i) c.kf_p[i] = kf_p[i];
+    }
+  }
 #pragma unroll
   for (int k = 0; k < 2 * NT; ++k)
     if (kTaps || k < 2 * K) c.acc[k] = boundary ? 0.0f : acc[k];
@@ -464,7 +605,8 @@ __device__ __forceinline__ void update_epoch(Carry& c, const TrackParams& p,
   c.acc_cnt = boundary ? 0 : acc_cnt;
 }
 
-__device__ void load_carry(Carry& c, const int* w, int n_taps) {
+template <bool kKf>
+__device__ void load_carry(ChannelCarry<kKf>& c, const int* w, int n_taps) {
   c.active = w[W_ACTIVE];
   c.state = w[W_STATE];
   c.off = w[W_SAMPLE_OFFSET];
@@ -494,10 +636,16 @@ __device__ void load_carry(Carry& c, const int* w, int n_taps) {
   c.acc_cnt = w[W_ACC_CNT];
   c.if_freq = f_of(w[W_IF_FREQ]);
   for (int k = 0; k < 2 * n_taps; ++k) c.acc[k] = f_of(w[W_ACC_CORR + k]);
+  if constexpr (kKf) {
+    c.kf_acc = f_of(w[W_KF_ACC]);
+    for (int i = 0; i < 9; ++i)
+      c.kf_p[i] = f_of(w[W_ACC_CORR + 2 * n_taps + i]);
+  }
 }
 
 // Stores the fields the loop changes; the other words were copied already.
-__device__ void store_carry(const Carry& c, int* w, int n_taps) {
+template <bool kKf>
+__device__ void store_carry(const ChannelCarry<kKf>& c, int* w, int n_taps) {
   w[W_STATE] = c.state;
   w[W_SAMPLE_OFFSET] = c.off;
   w[W_REM_CODE_PHASE] = w_of(c.rem);
@@ -521,6 +669,11 @@ __device__ void store_carry(const Carry& c, int* w, int n_taps) {
   w[W_ACC_DT] = w_of(c.acc_dt);
   w[W_ACC_CNT] = c.acc_cnt;
   for (int k = 0; k < 2 * n_taps; ++k) w[W_ACC_CORR + k] = w_of(c.acc[k]);
+  if constexpr (kKf) {
+    w[W_KF_ACC] = w_of(c.kf_acc);
+    for (int i = 0; i < 9; ++i)
+      w[W_ACC_CORR + 2 * n_taps + i] = w_of(c.kf_p[i]);
+  }
 }
 
 // Fetch this thread's samples of tile j of the window that starts at sample
@@ -546,7 +699,7 @@ __device__ __forceinline__ void prefetch_tile(float2* slot,
 // without it every tap reads the one component, and the routing folds away.
 // kTaps: the tap count (0: p.n_taps at run time). One cluster of
 // p.cluster blocks per channel, GNSS_THREADS / p.cluster threads each.
-template <bool kPilot, int kTaps>
+template <bool kPilot, int kTaps, bool kKf>
 __global__ void __launch_bounds__(GNSS_THREADS)
 track_chunk_kernel(const TrackParams p, const float2* __restrict__ chunk,
                    const float* __restrict__ code_tables,
@@ -554,7 +707,7 @@ track_chunk_kernel(const TrackParams p, const float2* __restrict__ chunk,
                    const int* __restrict__ carry_in, int* __restrict__ carry_out,
                    float* __restrict__ packed) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Carry carry;
+  __shared__ ChannelCarry<kKf> carry;
   __shared__ EpochPlan plan;
   // each local warp's row of 2K sums, double-buffered by step parity
   __shared__ float part[2][GNSS_WARPS][2 * GNSS_MAX_TAPS];
@@ -591,7 +744,7 @@ track_chunk_kernel(const TrackParams p, const float2* __restrict__ chunk,
     comp[threadIdx.x] = p.tap_comp[threadIdx.x];
   }
   if (warp == 0) {
-    Carry cw;
+    ChannelCarry<kKf> cw;
     EpochPlan pw;
     load_carry(cw, carry_in + (size_t)c * W, p.n_taps);
     plan_epoch(cw, p, pw);
@@ -680,7 +833,8 @@ track_chunk_kernel(const TrackParams p, const float2* __restrict__ chunk,
         float* row = (rank == 0 && wl == 0)
                          ? packed + ((size_t)s * p.n_ch + c) * PACKED_COLS
                          : nullptr;
-        update_epoch<kTaps, kPilot>(carry, p, e, corr, sec_row, row, wl);
+        update_epoch<kTaps, kPilot, kKf>(carry, p, e, corr, sec_row, row,
+                                         wl);
         __syncwarp();                     // the new carry is in place
         EpochPlan pw;
         plan_epoch(carry, p, pw);
@@ -706,19 +860,22 @@ track_chunk_kernel(const TrackParams p, const float2* __restrict__ chunk,
 typedef void (*TrackKernel)(const TrackParams, const float2*, const float*,
                             const float*, const int*, int*, float*);
 
-// The compiled variants: [pilot][tap set], the tap sets of the receivers'
-// configurations (3: E/P/L; 5: VEML; +1: the pilot's data prompt) and any
-// other count at run time.
-static const TrackKernel kVariants[2][3] = {
-    {track_chunk_kernel<false, 3>, track_chunk_kernel<false, 5>,
-     track_chunk_kernel<false, 0>},
-    {track_chunk_kernel<true, 4>, track_chunk_kernel<true, 6>,
-     track_chunk_kernel<true, 0>}};
+// The compiled variants: [KF][pilot][tap set], the tap sets of the
+// receivers' configurations (3: E/P/L; 5: VEML; +1: the pilot's data
+// prompt) and any other count at run time; the KF variants run the Kalman
+// carrier update (p.carrier_kf).
+#define K2_SETS(kf)                                                     \
+  {{track_chunk_kernel<false, 3, kf>, track_chunk_kernel<false, 5, kf>, \
+    track_chunk_kernel<false, 0, kf>},                                  \
+   {track_chunk_kernel<true, 4, kf>, track_chunk_kernel<true, 6, kf>,   \
+    track_chunk_kernel<true, 0, kf>}}
+static const TrackKernel kVariants[2][2][3] = {K2_SETS(false), K2_SETS(true)};
+#undef K2_SETS
 
 static TrackKernel variant(const TrackParams& p) {
   const int pilot = p.n_comp == 2 ? 1 : 0;
   const int set = p.n_taps == 3 + pilot ? 0 : (p.n_taps == 5 + pilot ? 1 : 2);
-  return kVariants[pilot][set];
+  return kVariants[p.carrier_kf != 0][pilot][set];
 }
 
 static size_t dyn_smem(const TrackParams& p) {
@@ -737,8 +894,8 @@ static int prepare(void) {
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
   if (raised[dev]) return 0;
-  for (int v = 0; v < 6; ++v) {
-    err = cudaFuncSetAttribute(kVariants[v / 3][v % 3],
+  for (int v = 0; v < 12; ++v) {
+    err = cudaFuncSetAttribute(kVariants[v / 6][v / 3 % 2][v % 3],
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                MAX_DYN_SMEM);
     if (err != cudaSuccess) return (int)err;

@@ -57,6 +57,92 @@ class GpsAlmanac:
             i0=GPS_ALMANAC_I0_REF + self.delta_i,
             health=self.health)
 
+    @classmethod
+    def from_ephemeris(cls, eph: KeplerEphemeris) -> "GpsAlmanac":
+        """Reduce an ephemeris to its almanac projection (test oracle and
+        the generator's source for SF4/5 pages).
+
+        toa is transmitted in 2^12 s steps, so the reference epoch snaps to
+        that grid and the epoch-dependent elements (m0, omega0, af0)
+        propagate to the snapped epoch — otherwise the quantized toa would
+        shift the mean anomaly by up to n*2048 s (thousands of km)."""
+        toa = round(eph.toe / 4096.0) * 4096.0
+        dt = toa - eph.toe
+        n = np.sqrt(eph.gm) / eph.sqrt_a ** 3
+
+        def wrap(x):
+            return float((x + np.pi) % (2.0 * np.pi) - np.pi)
+
+        return cls(prn=eph.prn, e=eph.e, toa=toa,
+                   delta_i=eph.i0 - GPS_ALMANAC_I0_REF,
+                   omega_dot=eph.omega_dot, sqrt_a=eph.sqrt_a,
+                   omega0=wrap(eph.omega0 + eph.omega_dot * dt),
+                   omega=eph.omega, m0=wrap(eph.m0 + n * dt),
+                   af0=eph.af0 + eph.af1 * dt, af1=eph.af1,
+                   health=eph.health, wna=eph.week & 0xFF)
+
+    def position_velocity(self, t: float):
+        return self.to_ephemeris().position_velocity(t)
+
+
+# BDS ICD 5.2.4.15: almanac delta_i is relative to 0.30 semicircles for
+# MEO/IGSO satellites and to 0 for GEO (PRN 1-5, 59-63)
+BDS_ALMANAC_I0_REF = 0.30 * np.pi
+
+
+def _bds_i_ref(prn: int) -> float:
+    return 0.0 if (prn <= 5 or prn >= 59) else BDS_ALMANAC_I0_REF
+
+
+@dataclasses.dataclass
+class BeidouAlmanac:
+    """One satellite's D1 almanac page (subframe 4 / subframe 5 pages 1-6,
+    BDS ICD 5.2.4.14; reference beidou_dnav_navigation_message.cc case 4/5).
+    Angles in radians; ``delta_i`` relative to the orbit-type nominal."""
+
+    prn: int = 0
+    sqrt_a: float = 0.0        # [m^0.5] (absolute, unlike Galileo)
+    e: float = 0.0
+    delta_i: float = 0.0       # [rad] offset from 54 deg (MEO/IGSO) or 0 (GEO)
+    toa: float = 0.0           # [s of week], 4096 s steps on air
+    omega0: float = 0.0        # [rad]
+    omega: float = 0.0         # [rad]
+    m0: float = 0.0            # [rad]
+    omega_dot: float = 0.0     # [rad/s]
+    af0: float = 0.0           # [s]
+    af1: float = 0.0           # [s/s]
+    wna: int = 0               # almanac week (8 bits, from SF5 page 8)
+    health: int = 0
+
+    def to_ephemeris(self) -> KeplerEphemeris:
+        return KeplerEphemeris(
+            prn=self.prn, week=self.wna, toc=self.toa, toe=self.toa,
+            af0=self.af0, af1=self.af1,
+            sqrt_a=self.sqrt_a, e=self.e, m0=self.m0,
+            omega0=self.omega0, omega_dot=self.omega_dot, omega=self.omega,
+            i0=_bds_i_ref(self.prn) + self.delta_i,
+            health=self.health, gm=C.GM_EARTH_BDS)
+
+    @classmethod
+    def from_ephemeris(cls, eph: KeplerEphemeris) -> "BeidouAlmanac":
+        """Almanac projection (toa snaps to the 4096 s broadcast grid with
+        epoch-dependent elements propagated, as in GpsAlmanac)."""
+        toa = round(eph.toe / 4096.0) * 4096.0
+        dt = toa - eph.toe
+        n = np.sqrt(eph.gm) / eph.sqrt_a ** 3
+
+        def wrap(x):
+            return float((x + np.pi) % (2.0 * np.pi) - np.pi)
+
+        return cls(prn=eph.prn, sqrt_a=eph.sqrt_a, e=eph.e,
+                   delta_i=eph.i0 - _bds_i_ref(eph.prn),
+                   toa=toa,
+                   omega0=wrap(eph.omega0 + eph.omega_dot * dt),
+                   omega=eph.omega, m0=wrap(eph.m0 + n * dt),
+                   omega_dot=eph.omega_dot,
+                   af0=eph.af0 + eph.af1 * dt, af1=eph.af1,
+                   wna=eph.week & 0xFF, health=eph.health)
+
     def position_velocity(self, t: float):
         return self.to_ephemeris().position_velocity(t)
 

@@ -1,7 +1,5 @@
 """BeiDou B1I/B3I D1 navigation message encoder + decoder (the PyTorch
-port's copy of gnss_sdr_tpu/models/nav/beidou_d1.py, without the almanac,
-health and almanac-reference pages: subframes 4 and 5 decode to their
-fields and are not assembled).
+port's copy of gnss_sdr_tpu/models/nav/beidou_d1.py).
 
 Decoder fills the role of the reference's
 ``beidou_dnav_navigation_message.cc`` + ``beidou_b1i_telemetry_decoder_gs``
@@ -20,8 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from gnss_sdr_tpu_torch import constants as C
 from gnss_sdr_tpu_torch.models.ephemeris import IonoParams, KeplerEphemeris
+from gnss_sdr_tpu_torch import constants as C
 
 PREAMBLE = np.array([1, 1, 1, 0, 0, 1, 0, 0, 0, 1, 0], np.uint8)
 PI = 3.1415926535898
@@ -262,6 +260,63 @@ def encode_subframe(fraid: int, sow_s: float, eph: KeplerEphemeris,
     return out
 
 
+def encode_almanac_page(fraid: int, sow_s: float, alm,
+                        pnum: int) -> np.ndarray:
+    """One SF4 (pages 1-24, SV=pnum) or SF5 (pages 1-6, SV=24+pnum) almanac
+    subframe (reference beidou_dnav_navigation_message.cc cases 4/5)."""
+    sf = np.zeros(300, np.uint8)
+    sf[0:11] = PREAMBLE
+    _place(sf, [(16, 3)], fraid)
+    _place(sf, [(19, 8), (31, 12)], int(sow_s) % 604800)
+    vals = dict(pnum=pnum, sqrt_a=alm.sqrt_a, af1=alm.af1, af0=alm.af0,
+                omega0=alm.omega0, e=alm.e, delta_i=alm.delta_i,
+                toa=alm.toa, omega_dot=alm.omega_dot, omega=alm.omega,
+                m0=alm.m0)
+    for name, (spec, signed, lsb) in _SFALM.items():
+        v = vals[name]
+        q = int(round(v / lsb)) if lsb else int(v)
+        _place(sf, spec, q)
+    return _finish_subframe(sf)
+
+
+def _finish_subframe(sf: np.ndarray) -> np.ndarray:
+    out = sf.copy()
+    out[0:30] = encode_word(sf[0:26], first=True)
+    for w in range(1, 10):
+        out[w * 30: (w + 1) * 30] = encode_word(sf[w * 30: w * 30 + 22],
+                                                first=False)
+    return out
+
+
+def encode_almanac_reference_page(sow_s: float, toa: float, wna: int,
+                                  healths: dict | None = None) -> np.ndarray:
+    """SF5 page 8: almanac reference week + time, health SV 20-30
+    (``healths`` keyed by SV number; omitted SVs read 0 = healthy)."""
+    sf = np.zeros(300, np.uint8)
+    sf[0:11] = PREAMBLE
+    _place(sf, [(16, 3)], 5)
+    _place(sf, [(19, 8), (31, 12)], int(sow_s) % 604800)
+    _place(sf, _SF5P8["pnum"][0], 8)
+    for sv in range(20, 31):
+        _place(sf, _SF5P8[f"hea{sv}"][0], (healths or {}).get(sv, 0) & 0x1FF)
+    _place(sf, _SF5P8["wna"][0], wna & 0xFF)
+    _place(sf, _SF5P8["toa2"][0], int(toa / 4096.0) & 0xFF)
+    return _finish_subframe(sf)
+
+
+def encode_health_page(sow_s: float, healths: dict | None = None
+                       ) -> np.ndarray:
+    """SF5 page 7: satellite health SV 1-19 (BDS ICD 5.2.4.16)."""
+    sf = np.zeros(300, np.uint8)
+    sf[0:11] = PREAMBLE
+    _place(sf, [(16, 3)], 5)
+    _place(sf, [(19, 8), (31, 12)], int(sow_s) % 604800)
+    _place(sf, _SF5P7["pnum"][0], 7)
+    for sv in range(1, 20):
+        _place(sf, _SF5P7[f"hea{sv}"][0], (healths or {}).get(sv, 0) & 0x1FF)
+    return _finish_subframe(sf)
+
+
 def decode_subframe(tx: np.ndarray) -> tuple[int, float, dict] | None:
     """300 transmitted bits -> (fraid, sow, fields) or None."""
     if not np.array_equal(tx[0:11], PREAMBLE):
@@ -303,15 +358,55 @@ class D1Assembler:
         self.prn = prn
         self.sf: dict[int, dict] = {}
         self.iono = IonoParams()
+        # constellation almanac from SF4 (SV 1-24) / SF5 pages 1-6
+        # (SV 25-30), keyed by the almanac's own SV; SF5 page 8 carries the
+        # reference week applied to all collected records
+        self.almanacs: dict[int, object] = {}
+        self.alm_wna: int | None = None
+        self.alm_toa: float | None = None
+        self.health: dict[int, int] = {}   # SV -> 9-bit health word
 
     def push(self, fraid: int, fields: dict) -> None:
         if fraid in (4, 5):
-            return      # almanac / health pages: not assembled in the port
+            self._push_almanac(fraid, fields)
+            return
         self.sf[fraid] = fields
         if fraid == 1 and "alpha0" in fields:
             self.iono = IonoParams(
                 alpha=tuple(fields[f"alpha{i}"] for i in range(4)),
                 beta=tuple(fields[f"beta{i}"] for i in range(4)), valid=True)
+
+    def _push_almanac(self, fraid: int, fields: dict) -> None:
+        from gnss_sdr_tpu_torch.models.almanac import BeidouAlmanac
+        pnum = int(fields.get("pnum", 0))
+        if fraid == 5 and pnum == 7:
+            for sv in range(1, 20):
+                self.health[sv] = int(fields.get(f"hea{sv}", 0))
+            self._apply_health()
+            return
+        if fraid == 5 and pnum == 8:
+            self.alm_wna = int(fields["wna"])
+            self.alm_toa = float(fields["toa2"])
+            for sv in range(20, 31):
+                self.health[sv] = int(fields.get(f"hea{sv}", 0))
+            for a in self.almanacs.values():
+                a.wna = self.alm_wna
+            self._apply_health()
+            return
+        if "sqrt_a" not in fields or fields["sqrt_a"] <= 0.0:
+            return  # empty/reserved page
+        sv = pnum if fraid == 4 else 24 + pnum
+        self.almanacs[sv] = BeidouAlmanac(
+            prn=sv, sqrt_a=fields["sqrt_a"], e=fields["e"],
+            delta_i=fields["delta_i"], toa=fields["toa"],
+            omega0=fields["omega0"], omega=fields["omega"],
+            m0=fields["m0"], omega_dot=fields["omega_dot"],
+            af0=fields["af0"], af1=fields["af1"],
+            wna=self.alm_wna or 0, health=self.health.get(sv, 0))
+
+    def _apply_health(self) -> None:
+        for sv, a in self.almanacs.items():
+            a.health = self.health.get(sv, 0)
 
     def ephemeris(self) -> KeplerEphemeris | None:
         if not all(k in self.sf for k in (1, 2, 3)):

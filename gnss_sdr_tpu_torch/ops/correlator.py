@@ -87,8 +87,10 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     to float32 equals fmaf except on a double-rounding tie (about 2^-29 of
     inputs). The CUDA kernels compute the same float64 sum. An argument
     already in float64 (a float32 value widened once, e.g. a constant made
-    by :func:`const`) is taken as it is."""
-    return (_f64(a) * _f64(b) + _f64(c)).to(torch.float32)
+    by :func:`const`) is taken as it is. The product and sum are one
+    float64 ``addcmul``: the product of two float32 values is exact in
+    float64 however addcmul forms it, so its one rounding is the sum's."""
+    return torch.addcmul(_f64(c), _f64(a), _f64(b)).to(torch.float32)
 
 
 def _f64(t: torch.Tensor) -> torch.Tensor:
@@ -144,13 +146,21 @@ def epoch_correlate_plain(chunk: torch.Tensor, offsets: torch.Tensor,
     n_len = chunk.shape[0]
     n_i32, n64 = _sample_axis(n_max, dev)
     # window gather, clamped like a JAX gather; masked past n_samples. I
-    # and Q are gathered into planes of their own (the wipe's products run
-    # on contiguous rows).
-    win_idx = (offsets[:, None] + n_i32[None, :]).clamp_(0, n_len - 1)
-    flat = chunk.contiguous().view(-1)                             # [2L]
-    wr = torch.index_select(flat, 0, win_idx.view(-1).mul_(2))
-    wi = torch.index_select(flat, 0, win_idx.view(-1).add_(1))
-    wr, wi = wr.view(win_idx.shape), wi.view(win_idx.shape)        # [C, N]
+    # and Q land in planes of their own (the wipe's products run on
+    # contiguous rows). Where every window lies inside the chunk (the
+    # tracking loop's always: its offsets are clamped to [0, chunk_len])
+    # the windows are rows of the chunk's sliding view, one copy;
+    # elsewhere each index is clamped.
+    lo, hi = torch.aminmax(offsets)
+    if bool(lo >= 0) and bool(hi <= n_len - n_max):
+        win = torch.index_select(chunk.unfold(0, n_max, 1), 0, offsets)
+        wr, wi = win[:, 0], win[:, 1]                              # [C, N]
+    else:
+        win_idx = (offsets[:, None] + n_i32[None, :]).clamp_(0, n_len - 1)
+        flat = chunk.contiguous().view(-1)                         # [2L]
+        wr = torch.index_select(flat, 0, win_idx.view(-1).mul_(2))
+        wi = torch.index_select(flat, 0, win_idx.view(-1).add_(1))
+        wr, wi = wr.view(win_idx.shape), wi.view(win_idx.shape)
     mask = (n_i32[None, :] < n_samples[:, None]).to(chunk.dtype)
 
     # the carrier and code NCOs' product-sums (fma32) in one pass: in
@@ -204,7 +214,9 @@ def _code_taps(chips: torch.Tensor, tap_offsets: torch.Tensor,
     comps = tuple(tap_components) if tap_components is not None \
         else (0,) * n_taps
     g = code_tables.numel() // (n_ch * lt)
-    lo, hi = torch.aminmax(idx_f)
+    # the index is monotonic along the window (a float32 product-sum of a
+    # fixed step, floored), so its extremes lie at the window's ends
+    lo, hi = torch.aminmax(idx_f[..., :: max(1, idx_f.shape[-1] - 1)])
     if bool(lo >= -lt) and bool(hi < 2 * lt):
         tables = code_tables.reshape(n_ch, g, 1, lt).expand(
             -1, -1, 3, -1).reshape(-1)                            # [C*G*3Lt]

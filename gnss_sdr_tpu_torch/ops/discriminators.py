@@ -60,6 +60,17 @@ def _atan_tables(device) -> tuple:
             torch.tensor(_ATAN_LO, **f32))
 
 
+@functools.lru_cache(maxsize=16)
+def _atan_pairs(device, ndim: int) -> tuple:
+    """atan32's polynomial coefficients as Horner pairs (even half, odd
+    half) on a new leading axis before ``ndim`` broadcast ones: (a8, a7),
+    (a10, a9), (a6, a5), (a4, a3), (a2, a1)."""
+    order = ((8, 7), (10, 9), (6, 5), (4, 3), (2, 1))
+    return tuple(torch.tensor([_ATAN_T[i], _ATAN_T[j]], dtype=torch.float32,
+                              device=device).view(2, *(1,) * ndim)
+                 for i, j in order)
+
+
 def atan32(x: torch.Tensor) -> torch.Tensor:
     """float32 arctangent with the bits of the C library's ``atanf`` that
     the JAX reference's CPU backend calls (fdlibm's ``__atanf``, as glibc
@@ -73,26 +84,18 @@ def atan32(x: torch.Tensor) -> torch.Tensor:
     t = (p * ax - q) / (r + s * ax)
     z = t * t
     w = z * z
-    a = [const(v, x) for v in _ATAN_T]
-    s1 = z * (a[0] + w * (a[2] + w * (a[4] + w * (a[6] + w * (
-        a[8] + w * a[10])))))
-    s2 = w * (a[1] + w * (a[3] + w * (a[5] + w * (a[7] + w * a[9]))))
+    # the two halves' Horner steps side by side: (a8 + w a10, a7 + w a9),
+    # then (a6, a5), (a4, a3), (a2, a1) + w times the step before, each
+    # element through fdlibm's operations; the even half's last step alone
+    pairs = _atan_pairs(x.device, x.ndim)
+    h = pairs[0] + w * pairs[1]
+    for c in pairs[2:]:
+        h = c + w * h
+    s1 = z * (const(_ATAN_T[0], x) + w * h[0])
+    s2 = w * h[1]
     y = hi[k] - ((t * (s1 + s2) - lo[k]) - t)
     y = torch.where(ax >= const(_ATAN_HUGE, x), const(_ATAN_PI_2, x), y)
     return torch.copysign(y, x)
-
-
-def dll_nc_emlp(early: torch.Tensor, late: torch.Tensor,
-                spacing_chips: float = 0.5) -> torch.Tensor:
-    """Normalized non-coherent early-minus-late power, output in chips.
-
-    err = (|E| - |L|) / (|E| + |L|) * (1 - spacing) ... classic normalized EMLP
-    (reference: dll_nc_e_minus_l_normalized, tracking_discriminators.cc).
-    """
-    e = torch.abs(early)
-    l = torch.abs(late)
-    return (e - l) / torch.clamp(e + l, min=const(_EPS, e)) * const(
-        float(np.float32(1.0 - spacing_chips)), e)
 
 
 def dll_nc_vemlp(very_early, early, late, very_late) -> torch.Tensor:
@@ -102,33 +105,45 @@ def dll_nc_vemlp(very_early, early, late, very_late) -> torch.Tensor:
     return (p_e - p_l) / torch.clamp(p_e + p_l, min=_EPS)
 
 
-def pll_costas(prompt: torch.Tensor) -> torch.Tensor:
-    """Costas-loop atan discriminator, output in cycles (data-bit insensitive)."""
-    i = prompt.real
-    q = prompt.imag
-    eps = const(_EPS, i)
-    safe_i = torch.where(torch.abs(i) < eps, eps, i)
-    # / (2 pi) as a multiply by its float32 reciprocal, as XLA rewrites a
-    # division by a constant (and PyTorch's CUDA division by a number does)
-    return atan32(q / safe_i) * const(_INV_TWO_PI, i)
-
-
 def pll_atan2(prompt: torch.Tensor) -> torch.Tensor:
     """Four-quadrant phase discriminator (pilot channels), cycles."""
     return torch.atan2(prompt.imag, prompt.real) / _TWO_PI
 
 
-def fll_atan2(prev_prompt: torch.Tensor, prompt: torch.Tensor,
-              dt_s: torch.Tensor) -> torch.Tensor:
-    """Frequency discriminator over consecutive prompts, output in Hz.
+def loop_discriminators(early: torch.Tensor, late: torch.Tensor,
+                        prompt: torch.Tensor, prev_prompt: torch.Tensor,
+                        dt_s: torch.Tensor, spacing_chips: float):
+    """The tracking step's discriminators on [C] complex inputs ->
+    (code_err, phase_err, freq_err, |prev_prompt|), each element through
+    the JAX package's ``dll_nc_emlp``, ``pll_costas`` and ``fll_atan2``
+    operations (so the same bits), the like operations of the three
+    stacked: one magnitude pass for |E|, |L| and |P_{k-1}|, one guarded
+    division and one :func:`atan32` for the Costas and FLL arguments.
 
-    cross = Im(P_k * conj(P_{k-1})), dot = Re(P_k * conj(P_{k-1}));
-    f_err = atan(cross/dot) / (2*pi*dt) — the atan (not atan2) form is
-    insensitive to data-bit sign flips between the two prompts; pull-in range
-    is +/- 1/(4*dt) Hz. Positive when the true carrier is above the NCO.
+    - code_err [chips]: the normalized non-coherent early-minus-late power
+      (|E| - |L|) / (|E| + |L|) * (1 - spacing) (reference:
+      dll_nc_e_minus_l_normalized, tracking_discriminators.cc).
+    - phase_err [cycles]: the Costas atan(Q / I) / (2 pi), insensitive to
+      data bits; the division by 2 pi a multiply by its float32
+      reciprocal, as XLA rewrites a division by a constant (and PyTorch's
+      CUDA division by a number does).
+    - freq_err [Hz]: atan(cross / dot) / (2 pi dt) over consecutive
+      prompts, dot + j cross = P_k conj(P_{k-1}): the atan (not atan2)
+      form is insensitive to data-bit flips between the two prompts;
+      pull-in range +/- 1 / (4 dt) Hz, positive when the true carrier is
+      above the NCO.
     """
+    mag = torch.abs(torch.stack([early, late, prev_prompt]))
+    e, l, prev_abs = mag.unbind(0)
+    eps = const(_EPS, e)
+    code_err = (e - l) / torch.clamp(e + l, min=eps) * const(
+        float(np.float32(1.0 - spacing_chips)), e)
     z = prompt * torch.conj(prev_prompt)
-    dot, cross = z.real, z.imag
-    eps = const(_EPS, dot)
-    safe_dot = torch.where(torch.abs(dot) < eps, eps, dot)
-    return atan32(cross / safe_dot) / (const(_TWO_PI, dot) * dt_s)
+    # (Q / I, cross / dot), each denominator kept off zero
+    num = torch.stack([prompt.imag, z.imag])
+    den = torch.stack([prompt.real, z.real])
+    den = torch.where(torch.abs(den) < eps, eps, den)
+    at = atan32(num / den)
+    phase_err = at[0] * const(_INV_TWO_PI, e)
+    freq_err = at[1] / (const(_TWO_PI, e) * dt_s)
+    return code_err, phase_err, freq_err, prev_abs

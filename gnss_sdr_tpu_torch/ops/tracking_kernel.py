@@ -20,8 +20,10 @@ The carry crosses into the kernel as one ``[C, W]`` int32 buffer
 (:func:`pack_carry`): every ``TrackingState`` field in the order of
 ``CARRY_FIELDS`` (the ``CarryWord`` enum of the kernel), floats bitcast,
 bools as 0/1, ``acc_corr [C, K, 2]`` and ``kf_p [C, 3, 3]`` flattened at the
-end. :func:`unpack_carry` is its exact inverse. ``kf_p`` and ``kf_acc`` pass
-through the kernel untouched (the Kalman carrier loop is not ported).
+end. :func:`unpack_carry` is its exact inverse. ``kf_p`` and ``kf_acc`` are
+the Kalman carrier loop's state: a dispatch with ``cfg.carrier_kf``
+launches the kernel's KF variant, which updates them; the others pass them
+through.
 
 The receiver keeps its carry in this packed form on the card between
 dispatches, so a dispatch (:func:`track_chunk_carry`) is one launch and two
@@ -46,11 +48,14 @@ import numpy as np
 import torch
 
 from gnss_sdr_tpu_torch.ops import cn0 as cn0_ops
+from gnss_sdr_tpu_torch.ops import kalman
 from gnss_sdr_tpu_torch.ops import loop_filters as lf
 
 # launches of the CUDA kernel since the count was last reset: lets a run
-# show that its main path went through it
+# show that its main path went through it; kf_launches counts those of the
+# KF variants among them
 launches = 0
+kf_launches = 0
 
 MAX_TAPS = 8
 # dynamic shared memory a block may take beside its static scratch
@@ -188,7 +193,11 @@ class _Params(ctypes.Structure):
             "inv_dll_w0", "a3", "b3", "a2", "cn0_alpha", "cn0_min",
             "lock_min", "eps20", "eps12")]
         + [("taps", ctypes.c_float * MAX_TAPS),
-           ("tap_comp", ctypes.c_int * MAX_TAPS)])
+           ("tap_comp", ctypes.c_int * MAX_TAPS),
+           ("carrier_kf", ctypes.c_int)]
+        + [(n, ctypes.c_float) for n in (
+            "kf_q_phase", "kf_q_freq", "kf_q_rate")]
+        + [("kf_log2_10", ctypes.c_double)])
 
 
 def _f32(x) -> float:
@@ -278,7 +287,9 @@ def make_params(cfg, n_ch: int, length: int, table_len: int,
         inv_dll_w0=_recip(0.53), a3=_f32(1.1), b3=_f32(2.4), a2=_f32(1.414),
         cn0_alpha=_f32(cfg.cn0_alpha), cn0_min=_f32(cfg.cn0_min_dbhz),
         lock_min=_f32(cfg.carrier_lock_min), eps20=_f32(1e-20),
-        eps12=_f32(1e-12))
+        eps12=_f32(1e-12), carrier_kf=int(bool(cfg.carrier_kf)),
+        kf_q_phase=_f32(cfg.kf_q_phase), kf_q_freq=_f32(cfg.kf_q_freq),
+        kf_q_rate=_f32(cfg.kf_q_rate), kf_log2_10=kalman.powf_log2(10.0))
     for k, (t, g) in enumerate(zip(taps, comps)):
         p.taps[k] = _f32(t)
         p.tap_comp[k] = g
@@ -292,9 +303,6 @@ def _check(cfg, chunk, carry, code_tables, sec_tables,
     if cluster is not None and cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster size {cluster}: the kernel takes m in "
                          f"{CLUSTER_SIZES}, whole warps of its 16 per block")
-    if cfg.carrier_kf:
-        raise NotImplementedError("carrier_kf: the Kalman carrier loop is "
-                                  "not ported yet")
     tensors = dict(chunk=chunk, carry=carry, code_tables=code_tables)
     if sec_tables is not None:
         tensors["sec_tables"] = sec_tables
@@ -419,7 +427,7 @@ def track_chunk_carry(cfg, chunk: torch.Tensor, carry: torch.Tensor,
     packed carry -> (new carry [C, W] int32, packed [S, C, 13]); ``chunk``
     float32 [L, 2] on a CUDA device, L >= chunk_len + n_max; ``cluster``
     forces the blocks per channel. Raises on anything else."""
-    global launches
+    global launches, kf_launches
     _check(cfg, chunk, carry, code_tables, sec_tables, cluster)
     if chunk.device.type != "cuda":
         raise ValueError(f"the fused tracking kernel runs on a CUDA device, "
@@ -433,6 +441,7 @@ def track_chunk_carry(cfg, chunk: torch.Tensor, carry: torch.Tensor,
         launch_kernel(kernel_args(cfg, chunk, carry, code_tables, sec_tables,
                                   carry_out, packed, cluster))
     launches += 1
+    kf_launches += int(bool(cfg.carrier_kf))
     return carry_out, packed
 
 

@@ -1,8 +1,7 @@
 """Control plane: telecommand TCP server, event queue, assistance persistence.
 
-Port of gnss_sdr_tpu/receiver/control.py, trimmed to the GPS types the port
-has (KeplerEphemeris, GpsAlmanac): a checkpoint holding GLONASS ephemerides
-or other constellations' almanacs raises ``NotImplementedError`` on load.
+Port of gnss_sdr_tpu/receiver/control.py.
+
 Reference analogs:
   * ``TcpCmdInterface`` (src/core/receiver/tcp_cmd_interface.cc:60): line-based
     TCP telecommands status/standby/reset/hotstart/warmstart/coldstart/
@@ -153,8 +152,8 @@ def save_assistance(path, ephemerides: dict,
                     almanacs: dict | None = None,
                     position_ecef=None, tow_s: float | None = None) -> None:
     """Ephemerides keyed by (system, prn) (bare int prn also accepted);
-    values are KeplerEphemeris dataclasses, tagged with their class for
-    reload (reference analog: PVT block XML serialization,
+    values are KeplerEphemeris or GlonassEphemeris dataclasses, tagged with
+    their class for reload (reference analog: PVT block XML serialization,
     control_thread.cc read_assistance_from_XML). Almanacs (weeks-valid),
     the last position and its receiver time persist alongside — together
     they are the classic warm-start state (reference almanac XML set,
@@ -184,7 +183,9 @@ def save_assistance(path, ephemerides: dict,
 def load_assistance(path):
     """Returns an Assistance record; missing file -> empty assistance.
     Ephemerides/almanacs come back keyed by (system, prn)."""
-    from gnss_sdr_tpu_torch.models.almanac import GpsAlmanac
+    from gnss_sdr_tpu_torch.models.almanac import (BeidouAlmanac, GalileoAlmanac,
+                                                   GlonassAlmanac, GpsAlmanac)
+    from gnss_sdr_tpu_torch.models.nav.glonass_gnav import GlonassEphemeris
     p = pathlib.Path(path)
     if not p.exists():
         return Assistance()
@@ -192,17 +193,21 @@ def load_assistance(path):
     ephs = {}
     for key, d in data.get("ephemerides", {}).items():
         cls_name = d.pop("__cls__", "KeplerEphemeris")
-        if cls_name != "KeplerEphemeris":
-            raise NotImplementedError(
-                f"assistance ephemeris {key} is a {cls_name}: not ported yet")
-        ephs[_eph_key_parse(key)] = KeplerEphemeris(**d)
+        if cls_name == "GlonassEphemeris":
+            for f in ("pos_m", "vel_m_s", "acc_m_s2"):
+                if f in d:
+                    d[f] = tuple(d[f])
+            eph = GlonassEphemeris(**d)
+        else:
+            eph = KeplerEphemeris(**d)
+        ephs[_eph_key_parse(key)] = eph
     alms = {}
     for key, d in data.get("almanacs", {}).items():
         cls_name = d.pop("__cls__", "GpsAlmanac")
-        if cls_name != "GpsAlmanac":
-            raise NotImplementedError(
-                f"assistance almanac {key} is a {cls_name}: not ported yet")
-        alms[_eph_key_parse(key)] = GpsAlmanac(**d)
+        cls = {"GlonassAlmanac": GlonassAlmanac,
+               "GalileoAlmanac": GalileoAlmanac,
+               "BeidouAlmanac": BeidouAlmanac}.get(cls_name, GpsAlmanac)
+        alms[_eph_key_parse(key)] = cls(**d)
     iono = None
     if data.get("iono"):
         d = data["iono"]

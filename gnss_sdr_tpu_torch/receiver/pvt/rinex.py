@@ -5,9 +5,8 @@ Port of gnss_sdr_tpu/receiver/pvt/rinex.py (reference analog:
 text, byte for byte, for what this port's receiver produces — observables
 (C/L/D/S) of any signal, GPS LNAV / CNAV, Galileo I/NAV / F/NAV and
 BeiDou D1 / D2 ephemerides (one Kepler record layout per system; the Galileo
-record's data-source word is the JAX package's, 513, for both) and GLONASS
-GNAV state-vector records (geph). SBAS GEO records raise
-``NotImplementedError`` until SBAS is ported.
+record's data-source word is the JAX package's, 513, for both), GLONASS
+GNAV state-vector records (geph) and SBAS GEO records (MT9).
 """
 
 from __future__ import annotations
@@ -214,11 +213,12 @@ class RinexObsReader:
 class RinexNavWriter:
     """RINEX 3.02 mixed (or 2.11 GPS) navigation writer for GPS LNAV,
     Galileo I/NAV and BeiDou D1 (Kepler layouts with per-system trailing
-    fields) and GLONASS GNAV state-vector records (geph).
+    fields), GLONASS GNAV state-vector records (geph) and SBAS GEO state
+    vectors (seph).
 
     Reference analog: the nav side of ``rinex_printer.cc`` (log_rinex_nav
     for Gps_Ephemeris / Galileo_Ephemeris / Glonass_Gnav_Ephemeris /
-    Beidou_Dnav_Ephemeris); SBAS records raise.
+    Beidou_Dnav_Ephemeris) and SBAS GEO records.
     """
 
     def __init__(self, path, version: str = "3.02",
@@ -313,8 +313,12 @@ class RinexNavWriter:
             self._write_geph(eph, glonass_date)
             return
         if hasattr(eph, "agf0_s"):                      # SBAS GEO (MT9)
-            raise NotImplementedError(
-                "RINEX SBAS GEO navigation records are not ported yet")
+            if self.version.startswith("2"):
+                raise ValueError(
+                    "RINEX 2.11 nav files are GPS-only; write SBAS GEO "
+                    "records to a 3.02 file")
+            self._write_seph(eph, glonass_date)
+            return
         if self.version.startswith("2") and system != "G":
             raise ValueError(
                 f"RINEX 2.11 nav files are GPS-only; system {system!r} "
@@ -378,6 +382,31 @@ class RinexNavWriter:
 
     def close(self) -> None:
         self._f.close()
+
+    def _write_seph(self, s, date: datetime.date | None) -> None:
+        """SBAS 'S' navigation record (rinex_printer.cc log_rinex_nav for
+        Sbas_Ephemeris): epoch + aGf0/aGf1/transmission time, then the
+        ECEF state vector in km with health/URA/IODN trailers. RINEX SBAS
+        PRNs are offset by 100 (S20 = PRN 120)."""
+        key = ("S", s.prn, s.t0_s)
+        if key in self._written:
+            return
+        self._written.add(key)
+        if not self._wrote_header:
+            self._header()
+        date = date or datetime.date(2020, 1, 1)
+        hh = int(s.t0_s // 3600)
+        mm = int((s.t0_s % 3600) // 60)
+        ss = int(s.t0_s % 60)
+        self._f.write(
+            f"S{s.prn - 100:02d} {date.year:4d} {date.month:02d} "
+            f"{date.day:02d} {hh:02d} {mm:02d} {ss:02d}"
+            f"{_f1912(s.agf0_s)}{_f1912(s.agf1_s_s)}{_f1912(s.t0_s)}\n")
+        p, v, a = s.pos_m, s.vel_m_s, s.acc_m_s2
+        self._line(p[0] / 1e3, v[0] / 1e3, a[0] / 1e3, 0.0)   # health
+        self._line(p[1] / 1e3, v[1] / 1e3, a[1] / 1e3, float(s.ura))
+        self._line(p[2] / 1e3, v[2] / 1e3, a[2] / 1e3, float(s.iodn))
+        self._f.flush()
 
 
 class RinexNavReader:

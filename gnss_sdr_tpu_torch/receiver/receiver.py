@@ -11,7 +11,10 @@ reacquire on loss; gnss_flowgraph.cc:1203-1366).
 
 This port covers the GPS L1 C/A, GPS L2 CM, GPS L5I, Galileo E1-B,
 Galileo E5a-I, GLONASS L1 / L2 C/A and BeiDou B1I / B3I (MEO / IGSO D1,
-GEO D2) receivers, alone or as signal groups of one hybrid receiver
+GEO D2) receivers, with SBAS L1 channels on the GPS L1 C/A group (MOPS
+messages; long-term and fast corrections and the ionospheric grid in the
+PVT) and the Kalman carrier loop (``carrier_kf``), alone or as signal
+groups of one hybrid receiver
 (``signal_plan``, ``group_params``: each group runs its own tracking loop
 on the shared stream; BOC(1,1) VEML tracking and E1-C pilot tracking for
 Galileo E1; L5Q / E5a-Q pilot tracking and the NH10 / CS20 / NH20 wipe
@@ -132,7 +135,6 @@ def _check_ported(cfg: ReceiverConfig) -> None:
                            for e in cfg.signal_plan),
         "n_mesh_devices": bool(cfg.n_mesh_devices and cfg.n_mesh_devices > 1),
         "tcp_connector": cfg.tcp_connector,
-        "carrier_kf": cfg.carrier_kf,
         "acq_variant": cfg.acq_variant not in PORTED_ACQ_VARIANTS,
         "dump_dir": cfg.dump_dir is not None,
     }
@@ -253,7 +255,8 @@ class SignalGroup:
             fll_bw_hz=cfg.fll_bw_hz,
             pll_bw_narrow_hz=cfg.pll_bw_narrow_hz,
             dll_bw_narrow_hz=cfg.dll_bw_narrow_hz,
-            track_pilot=track_pilot)
+            track_pilot=track_pilot,
+            carrier_kf=cfg.carrier_kf)
         self.channels = [Channel(i, global_id0 + i) for i in range(n_channels)]
         self.trk_state = trk.init_state(n_channels, self.trk_cfg.n_taps,
                                         device=device)
@@ -836,10 +839,13 @@ class Receiver:
         if not self.cfg.pvt_enabled:
             return
         inputs = pvt_solver.combine_iono_free(self.pvt_inputs(obs))
+        sbas_lt, sbas_iono = self.sbas_corrections()
         sol = pvt_solver.solve_pvt(
             inputs, self.ephemerides,
             iono=self.iono if self.cfg.pvt_apply_iono else None,
-            apply_tropo=self.cfg.pvt_apply_tropo)
+            apply_tropo=self.cfg.pvt_apply_tropo,
+            sbas_lt=sbas_lt,
+            sbas_iono=sbas_iono if self.cfg.pvt_apply_iono else None)
         if sol.valid:
             self.fixes.append(sol)
             for sink in self.fix_sinks:
@@ -861,15 +867,59 @@ class Receiver:
                     utc = getattr(asm, "utc", None)
                     if utc is not None and utc.valid:
                         self.utc = utc
+                    # an SBAS channel's MT9: the GEO satellite's own state
+                    # vector (RINEX 'S' records)
+                    geo = getattr(ch.telemetry, "geo_eph", None)
+                    if geo is not None:
+                        self.ephemerides[("S", ch.prn)] = geo
                     # almanac pages name OTHER satellites: key by their PRN
                     for prn, alm in getattr(asm, "almanacs", {}).items():
                         self.almanacs[(g.spec.system, prn)] = alm
 
+    def sbas_corrections(self):
+        """(long-term corrections keyed (system, prn), iono grid) from the
+        tracked SBAS channels (reference rtklib sbssatcorr/sbsioncorr
+        inputs); (None, None) when SBAS is off or nothing is decoded."""
+        if not self.cfg.pvt_apply_sbas:
+            return None, None
+        lt: dict = {}
+        grid = None
+        for g in self.groups:
+            for ch in g.channels:
+                tlm = ch.telemetry
+                if ch.state != "tracking" or tlm is None:
+                    continue
+                mask = getattr(tlm, "prn_mask", None)
+                for slot, corr in getattr(tlm, "long_term", {}).items():
+                    # MT25 slots are 1-based mask positions
+                    if mask and 0 < slot <= len(mask):
+                        lt[("G", mask[slot - 1])] = corr
+                ig = getattr(tlm, "iono_grid", None)
+                if ig is not None and ig.n_points and grid is None:
+                    grid = ig
+        return (lt or None), grid
+
     def pvt_inputs(self, obs: list[ChannelObservable]) -> list:
-        """Solver inputs for this receiver's observables."""
+        """Solver inputs for this receiver's observables (SBAS corrections
+        + per-group carrier frequencies applied)."""
+        # SBAS fast corrections: slot -> PRN via the type-1 mask (DO-229;
+        # PR_corrected = PR + PRC), applied to matching GPS observables
+        sbas_prc: dict[tuple, float] = {}
+        if self.cfg.pvt_apply_sbas:
+            for g in self.groups:
+                for ch in g.channels:
+                    tlm = ch.telemetry
+                    if (ch.state == "tracking" and tlm is not None
+                            and hasattr(tlm, "fast_corrections")):
+                        mask = getattr(tlm, "prn_mask", [])
+                        for slot, prc in tlm.fast_corrections.items():
+                            if slot < len(mask):
+                                sbas_prc[("G", mask[slot])] = prc
         group_by_sig = {g.signal: g for g in self.groups}
         return [pvt_solver.ObsInput(
-            prn=o.prn, pseudorange_m=o.pseudorange_m,
+            prn=o.prn,
+            pseudorange_m=o.pseudorange_m + sbas_prc.get(
+                (constants.SIGNALS[o.signal].system, o.prn), 0.0),
             doppler_hz=o.doppler_hz,
             carrier_freq_hz=(group_by_sig[o.signal].carrier_freq_for(o.prn)
                              if o.signal in group_by_sig else

@@ -976,11 +976,143 @@ class BeidouB1IGeoTelemetry:
         return self.assembler.ephemeris()
 
 
+class SbasL1Telemetry:
+    """SBAS L1 telemetry decoder (reference: sbas_l1_telemetry_decoder_gs).
+
+    SBAS rides on "1C" channels (same C/A family, PRN 120-138) but carries
+    500 sps convolutionally-coded MOPS messages: 2 code epochs per symbol,
+    continuous FEC, preamble+CRC framing in models/nav/sbas.py. SBAS is not
+    used for ranging by default (reference behavior), so ``have_tow`` stays
+    False; decoded messages and fast corrections are exposed instead.
+    """
+
+    def __init__(self, prn: int):
+        from gnss_sdr_tpu_torch.models.nav import sbas
+        self._sbas = sbas
+        self.prn = prn
+        self.assembler = self           # uniform channel API (iono lookup)
+        self.iono = None
+        self._epochs = np.zeros(0, np.int64)
+        self._prompts = np.zeros(0, np.float64)
+        self.symbol_phase: int | None = None
+        self.messages: list[tuple[int, np.ndarray]] = []   # (type, data212)
+        self.fast_corrections: dict[int, float] = {}       # mask slot -> PRC m
+        self.prn_mask: list[int] = []
+        # MT24/25 long-term corrections keyed by mask slot number and the
+        # MT18/26 ionospheric grid (reference rtklib_sbas.cc sbssat_t
+        # lcorr / sbsion_t)
+        self.long_term: dict[int, object] = {}
+        self.iono_grid = sbas.SbasIonoGrid()
+        self.geo_eph = None             # MT9 GEO navigation message
+        self.message_count = 0
+        self._decoded_upto_sym = 0
+        self._next_bit = 0              # dedup across overlapping windows
+        self.bit_phase = None           # SBAS has no nav-bit sync concept
+        self.tow_ref = None
+
+    def push(self, epoch_indices, prompts_i) -> None:
+        if len(epoch_indices) == 0:
+            return
+        self._epochs = np.concatenate(
+            [self._epochs, np.asarray(epoch_indices, np.int64)])
+        self._prompts = np.concatenate(
+            [self._prompts, np.asarray(prompts_i, np.float64)])
+        self._decode()
+
+    def _symbols(self):
+        p = self._prompts
+        e0 = int(self._epochs[0])
+        if self.symbol_phase is None:
+            if len(p) < 1000:
+                return None
+            best, best_e = None, -1.0
+            for ph in range(2):
+                off = (ph - e0) % 2
+                n_s = (len(p) - off) // 2
+                seg = p[off: off + 2 * n_s].reshape(n_s, 2).sum(axis=1)
+                energy = float(np.mean(np.abs(seg)))
+                if energy > best_e:
+                    best_e, best = energy, ph
+            self.symbol_phase = best
+        off = (self.symbol_phase - e0) % 2
+        n_s = (len(p) - off) // 2
+        if n_s <= 0:
+            return None
+        # chip convention bit b -> +-(1-2b): soft(+ == bit1) = -I
+        return -p[off: off + 2 * n_s].reshape(n_s, 2).sum(axis=1)
+
+    def _decode(self) -> None:
+        soft = self._symbols()
+        if soft is None:
+            return
+        # sliding windows with >= 1-message overlap; global bit offsets
+        # dedup the overlap region
+        min_win = 2 * self._sbas.MSG_SYMBOLS + 120
+        max_win = 4 * self._sbas.MSG_SYMBOLS
+        while len(soft) - self._decoded_upto_sym >= min_win:
+            upto = self._decoded_upto_sym
+            seg = soft[upto: upto + min(max_win, len(soft) - upto)]
+            for off_bits, mtype, data in self._sbas.decode_stream(seg):
+                g = upto // 2 + off_bits
+                if g < self._next_bit:
+                    continue
+                self._next_bit = g + self._sbas.MSG_BITS
+                self.messages.append((mtype, data))
+                self.message_count += 1
+                if mtype == 1:
+                    self.prn_mask = self._sbas.parse_type1_mask(data)
+                elif mtype in (2, 3, 4, 5):
+                    iodf, prcs, udrei = self._sbas.parse_fast_corrections(
+                        mtype, data)
+                    base = 13 * (mtype - 2)
+                    for k, prc in enumerate(prcs):
+                        if udrei[k] < 14:       # monitored
+                            self.fast_corrections[base + k] = prc
+                elif mtype == 24:
+                    p24 = self._sbas.parse_type24(data)
+                    for k, prc in enumerate(p24["prcs"]):
+                        if p24["udrei"][k] < 14:
+                            self.fast_corrections[
+                                13 * p24["block"] + k] = prc
+                    for c in p24["long_term"]:
+                        self.long_term[c.mask_no] = c
+                elif mtype == 25:
+                    for c in self._sbas.parse_type25(data):
+                        self.long_term[c.mask_no] = c
+                elif mtype == 18:
+                    self.iono_grid.update_mask(
+                        self._sbas.parse_type18_igp_mask(data))
+                elif mtype == 26:
+                    self.iono_grid.update_delays(
+                        self._sbas.parse_type26_iono_delays(data))
+                elif mtype == 9:
+                    # GEO navigation message: the SBAS satellite's own
+                    # state vector (harvested into the receiver's
+                    # ephemeris store under ("S", prn) and written as
+                    # RINEX 'S' nav records)
+                    self.geo_eph = self._sbas.parse_type9_geo_nav(
+                        data, prn=self.prn)
+            adv = len(seg) - (self._sbas.MSG_SYMBOLS + 120)
+            self._decoded_upto_sym += max(2, adv - adv % 2)
+
+    @property
+    def have_tow(self) -> bool:
+        return False
+
+    def transmit_time(self, epoch: int, chips: float, code_len: int = 1023,
+                      code_rate: float = 1.023e6):
+        return None                     # SBAS ranging disabled (reference default)
+
+    def ephemeris(self):
+        return None
+
+
 def make_telemetry(signal: str, prn: int):
     """Telemetry decoder factory by signal code (reference:
-    GNSSBlockFactory::GetTlmBlock). Every decoder of the JAX package is
-    ported but SBAS L1 (PRN >= 120)."""
-    if signal == "1C" and prn < 120:
+    GNSSBlockFactory::GetTlmBlock): every decoder of the JAX package."""
+    if signal == "1C":
+        if prn >= 120:
+            return SbasL1Telemetry(prn)
         return GpsL1CaTelemetry(prn)
     if signal == "1B":
         return GalileoE1BTelemetry(prn)

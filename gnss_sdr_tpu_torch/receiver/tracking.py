@@ -510,9 +510,6 @@ def _ordinary(tree):
 
 def _track_chunk(cfg, chunk, state, code_tables, sec_tables, correlate):
     """:func:`track_chunk`'s steps."""
-    if cfg.carrier_kf:
-        raise NotImplementedError("carrier_kf: the Kalman carrier loop is "
-                                  "not ported yet")
     chunk = iq.as_iq2(chunk)
     dev = chunk.device
     prompt_i = cfg.prompt_index
@@ -552,6 +549,7 @@ def _track_chunk(cfg, chunk, state, code_tables, sec_tables, correlate):
     pull_in_epochs = const(cfg.pull_in_epochs, i32)
     wide_epochs = const(cfg.wide_epochs, i32)
     max_lock_fail = const(cfg.max_lock_fail, i32)
+    min_coh = const(float(np.float32(1e-4)), f32)
 
     st = state
     outs = []
@@ -601,17 +599,18 @@ def _track_chunk(cfg, chunk, state, code_tables, sec_tables, correlate):
         dt_eff = acc_dt
 
         prompt2 = acc[:, prompt_i]
-        prompt = iq.as_complex(prompt2)
-        early = iq.as_complex(acc[:, prompt_i - 1])
-        late = iq.as_complex(acc[:, prompt_i + 1])
+        # the taps as complex views of the accumulator (no copies)
+        acc_c = torch.view_as_complex(acc)
+        prompt = acc_c[:, prompt_i]
 
         # ---- discriminators ------------------------------------------------
-        code_err = discriminators.dll_nc_emlp(early, late, spacing)
-        phase_err = discriminators.pll_costas(prompt)
-        prev_prompt = iq.as_complex(st.prev_prompt)
-        freq_err = discriminators.fll_atan2(prev_prompt, prompt, dt_eff)
+        code_err, phase_err, freq_err, prev_abs = \
+            discriminators.loop_discriminators(
+                acc_c[:, prompt_i - 1], acc_c[:, prompt_i + 1], prompt,
+                torch.view_as_complex(st.prev_prompt.contiguous()), dt_eff,
+                spacing)
         # FLL only during pull-in, and only once a previous prompt exists
-        has_prev = torch.abs(prev_prompt) > zero_f
+        has_prev = prev_abs > zero_f
         in_pullin = st.state == pull_in
         fll_on = in_pullin & has_prev
         freq_err = torch.where(fll_on, freq_err, zero_f)
@@ -636,6 +635,26 @@ def _track_chunk(cfg, chunk, state, code_tables, sec_tables, correlate):
         # time even on mid-window rows (acc_dt there is a partial sum)
         dt_cn0 = st.ext_n.to(torch.float32) * dt
         cn0_est = cn0_ops.cn0_dbhz(new_cn0, dt_cn0)
+
+        # ---- Kalman carrier tracking (optional) ----------------------------
+        new_kf_p, new_kf_acc = st.kf_p, st.kf_acc
+        if cfg.carrier_kf:
+            r = kalman.phase_meas_var_cyc2(
+                cn0_est, torch.clamp(dt_eff, min=min_coh))
+            p_n, f_kf, a_kf, dphi = kalman.kf_update(
+                st.kf_p, st.kf_acc, st.carrier_freq, phase_err, dt_eff, r,
+                q_phase=cfg.kf_q_phase, q_freq=cfg.kf_q_freq,
+                q_rate=cfg.kf_q_rate)
+            kf_on = boundary & (st.state >= wide)
+            new_carrier_freq = torch.where(kf_on & ~in_pullin, f_kf,
+                                           new_carrier_freq)
+            kf_dphi = torch.where(kf_on, dphi, zero_f)
+            new_kf_p = torch.where(kf_on[:, None, None], p_n, st.kf_p)
+            new_kf_acc = torch.where(kf_on, a_kf, st.kf_acc)
+            # keep the PLL carry synced so a fallback starts cleanly
+            new_pll = lf.Loop3State(
+                acc1=torch.where(kf_on, new_carrier_freq, new_pll.acc1),
+                acc2=torch.where(kf_on, zero_f, new_pll.acc2))
 
         doppler = new_carrier_freq - st.if_freq
         new_code_freq = fma32(doppler, code_to_carrier, code_rate) - code_cmd
@@ -662,6 +681,9 @@ def _track_chunk(cfg, chunk, state, code_tables, sec_tables, correlate):
 
         # ---- NCO phase/offset advance ---------------------------------------
         tot = fma32(st.carrier_freq * inv_fs, n_samp_f, st.carr_phase_frac)
+        if cfg.carrier_kf:
+            # the KF's phase-error transfer: the NCO phase jumps by it
+            tot = tot + kf_dphi
         whole = torch.floor(tot)
         new_frac = tot - whole
         new_cycles = st.carr_phase_cycles + whole.to(torch.int32)
@@ -707,7 +729,7 @@ def _track_chunk(cfg, chunk, state, code_tables, sec_tables, correlate):
             dll=bselt(new_dll, st.dll),
             pll=bselt(new_pll, st.pll),
             prev_prompt=torch.where(boundary[:, None], prompt2, st.prev_prompt),
-            cn0=bselt(new_cn0, st.cn0),
+            cn0=new_cn0,                 # updated on boundaries only
             epochs_in_state=sel(eis, st.epochs_in_state),
             epoch_count=sel(st.epoch_count + one_i, st.epoch_count),
             lock_fail=bsel(new_lock_fail, st.lock_fail),
@@ -717,8 +739,8 @@ def _track_chunk(cfg, chunk, state, code_tables, sec_tables, correlate):
             acc_corr=torch.where(boundary[:, None, None], zero_f, acc),
             acc_dt=torch.where(boundary, zero_f, acc_dt),
             acc_cnt=torch.where(boundary, zero_i, acc_cnt),
-            kf_p=st.kf_p,
-            kf_acc=st.kf_acc,
+            kf_p=new_kf_p,
+            kf_acc=new_kf_acc,
             if_freq=st.if_freq,
         )
 

@@ -17,6 +17,7 @@ import functools
 import numpy as np
 
 from gnss_sdr_tpu_torch import constants
+from gnss_sdr_tpu_torch.models.almanac import GpsAlmanac
 from gnss_sdr_tpu_torch.models.ephemeris import KeplerEphemeris
 from gnss_sdr_tpu_torch.models.nav import gps_lnav
 from gnss_sdr_tpu_torch.receiver.pvt import geodesy
@@ -89,19 +90,33 @@ def build_gps_l1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0)
                           t0_gps: float = 352800.08, duration_s: float = 28.0,
                           fs: float = 2.046e6, n_sats: int = 6,
                           cn0_dbhz: float = 47.0,
-                          vel_enu: tuple = (0.0, 0.0, 0.0)) -> Scenario:
-    """Build a GPS L1 C/A scenario on the almanac constellation, static or
-    with the receiver at the constant velocity ``vel_enu`` (m/s east, north,
-    up) (the JAX package's function without its SBAS and almanac-page
-    options).
+                          ephemerides: dict | None = None,
+                          vel_enu: tuple = (0.0, 0.0, 0.0),
+                          almanac_pages: bool = False,
+                          broadcast_ephemerides: dict | None = None,
+                          extra_code_delay_s: dict | None = None,
+                          sbas_prn: int | None = None,
+                          sbas_messages: list | None = None,
+                          sbas_cn0_dbhz: float = 47.0,
+                          el_mask_deg: float = 15.0) -> Scenario:
+    """Build a GPS L1 C/A scenario (static, or constant-velocity ``vel_enu``,
+    m/s east, north, up).
 
     The LNAV streams cycle subframes (1,2,3) so ephemeris is decodable within
     ~25 s of signal. SV transmit-time trajectories are CUBIC fits of the exact
     light-time solution (the quadratic fit left cm-level elevation-
     correlated carrier drifts that floored phase-based positioning tests
     at ~dm; the cubic residual over 60 s is micrometric).
+
+    Degradation/augmentation knobs (SBAS system tests):
+    ``broadcast_ephemerides``: per-PRN ephemerides ENCODED into LNAV while
+    the signal geometry stays on the truth set — models broadcast errors.
+    ``extra_code_delay_s``: per-PRN additional group delay (e.g. slant
+    iono / c). ``sbas_prn`` + ``sbas_messages`` add an SBAS L1 channel
+    (C/A PRN 120-138, 500 sps MOPS stream) carrying the given (type,
+    data212) messages on a cycle.
     """
-    ephs = constellation.almanac_constellation()
+    ephs = ephemerides or constellation.almanac_constellation()
     for e in ephs.values():
         e.tgd = 0.0   # signal-level sim carries no inter-signal group delay
     rcv = geodesy.geodetic_to_ecef(*rcv_llh)
@@ -113,7 +128,8 @@ def build_gps_l1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0)
     def rcv_at(t: float) -> np.ndarray:
         return rcv + vel_ecef * t if moving else rcv
 
-    vis = constellation.visible_sats(ephs, rcv, t0_gps, el_mask_deg=15.0)
+    vis = constellation.visible_sats(ephs, rcv, t0_gps,
+                                     el_mask_deg=el_mask_deg)
     chosen = [prn for prn, _, _ in vis[:n_sats]]
     if len(chosen) < n_sats:
         raise RuntimeError(f"only {len(chosen)} visible sats")
@@ -129,8 +145,14 @@ def build_gps_l1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0)
     tow_bits_start = 6.0 * np.floor(min(t_tx0.values()) / 6.0)
 
     n_subframes = int(np.ceil((duration_s + 12.0) / 6.0)) + 1
+    # SF4/5 almanac paging: every satellite broadcasts the constellation
+    # almanac; stagger the page sequence per satellite so a multi-channel
+    # receiver collects the full set in a fraction of the 12.5 min one
+    # channel would need (real paging differs per SV the same way)
+    almanacs = ([GpsAlmanac.from_ephemeris(ephs[p]) for p in chosen]
+                if almanac_pages else None)
     sats = []
-    for prn in chosen:
+    for si, prn in enumerate(chosen):
         eph = ephs[prn]
         # quadratic fit of t_tx_sv(t), t = receiver time since sample 0
         a3, a2, a1, a0 = _fit_t_tx(eph, rcv_at, t0_gps, duration_s)
@@ -140,8 +162,12 @@ def build_gps_l1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0)
         # generator model: chip_phase(t) = R*(t - d + (fd*t + 0.5*r*t^2)/fc)
         # matching R*(t_tx_sv(t) - tow_bits_start) termwise gives d = tow - a0
         code_delay = tow_bits_start - a0
+        code_delay += (extra_code_delay_s or {}).get(prn, 0.0)
         bits = generator.lnav_bits_to_symbols(gps_lnav.encode_frames(
-            eph, tow_bits_start, n_subframes, sfid_cycle=(1, 2, 3)))
+            (broadcast_ephemerides or ephs).get(prn, eph),
+            tow_bits_start, n_subframes,
+            sfid_cycle=(1, 2, 3, 5) if almanac_pages else (1, 2, 3),
+            almanacs=almanacs, alm_start=si))
         sats.append(generator.SatParams(
             prn=prn, cn0_dbhz=cn0_dbhz, doppler_hz=doppler,
             carrier_phase_cycles=_geometric_phase0(fc, a0),
@@ -152,7 +178,45 @@ def build_gps_l1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0)
                   tow_bits_start=tow_bits_start, duration_s=duration_s,
                   fs=fs, ephemerides=ephs, sats=sats, prns=chosen,
                   rcv_vel_ecef=vel_ecef)
+    if sbas_prn is not None:
+        _add_sbas_channel(sc, sbas_prn, sbas_messages or [], sbas_cn0_dbhz)
     return sc
+
+
+def _add_sbas_channel(sc: Scenario, prn: int, messages: list,
+                      cn0_dbhz: float) -> None:
+    """Overlay one SBAS L1 channel (C/A PRN 120-138, 250 bps MOPS messages
+    FEC-encoded to 500 sps) on a GPS L1 scenario: per-satellite generation
+    with a 2 ms symbol period spec, summed into the composite before the
+    shared noise floor (like the GLONASS per-slot path). GEO-like channel:
+    near-zero Doppler, fixed delay. ``messages``: (type, data212) list,
+    cycled for the scenario duration."""
+    import dataclasses as _dc
+
+    from gnss_sdr_tpu_torch.models.nav import sbas as sbas_mod
+
+    n_msgs = int(np.ceil(sc.duration_s)) + 2
+    cycle = [messages[k % len(messages)] for k in range(n_msgs)]
+    sym01 = sbas_mod.encode_stream(
+        [(t, d) for t, d in cycle])
+    # chip convention: bit b -> +-(1-2b) and the telemetry reads
+    # soft(+ == bit1) = -I, matching generator's lnav_bits_to_symbols
+    sym = generator.lnav_bits_to_symbols(sym01)
+    spec_sbas = _dc.replace(constants.GPS_L1_CA, bit_period_ms=2,
+                            prn_max=138)
+    sbas_sat = generator.SatParams(prn=prn, cn0_dbhz=cn0_dbhz,
+                                   doppler_hz=40.0, code_delay_s=0.0265,
+                                   data_bits=sym)
+    base_generate = sc.generate
+
+    def _generate(seed: int = 0, noise: bool = True, **kw) -> np.ndarray:
+        x = base_generate(seed=seed, noise=noise, **kw)
+        xs = generator.generate(spec_sbas, [sbas_sat], sc.fs, sc.duration_s,
+                                noise=False, device=kw.get("device"))
+        return (x + xs).astype(np.complex64)
+
+    sc.generate = _generate
+    sc.sbas_prn = prn
 
 
 def build_galileo_e1_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 80.0),
@@ -437,9 +501,9 @@ def build_beidou_b1i_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 8
                               duration_s: float = 30.0,
                               fs: float = 4.0e6, n_sats: int = 4,
                               cn0_dbhz: float = 48.0,
+                              almanac_pages: bool = False,
                               band: str = "B1") -> Scenario:
-    """BeiDou B1I/B3I (MEO/IGSO D1) scenario: NH20 overlay + 6 s subframes
-    (the JAX package's function without its almanac-page option).
+    """BeiDou B1I/B3I (MEO/IGSO D1) scenario: NH20 overlay + 6 s subframes.
 
     ``band`` B3 swaps in the 10.23 Mcps B3I code at 1268.52 MHz (same D1
     message, same NH20 overlay; reference Channels_B3 /
@@ -447,9 +511,11 @@ def build_beidou_b1i_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 8
 
     Subframes cycle FraID (1,2,3) with per-slot SOW so the ephemeris
     (subframes 1-3, beidou_d1.D1Assembler) completes within ~20 s of NH
-    sync. PRNs are restricted to >= 6 (GEO PRNs 1-5 transmit D2 at 500
-    sps). Reference analog: the Channels_B1 chain (BEIDOU_B1I_* adapters +
-    beidou_b1i_telemetry_decoder_gs.cc).
+    sync; with ``almanac_pages`` the cycle is (1,2,3,4,5), rotating the
+    visible constellation's almanac through SF4 and broadcasting the SF5
+    page-8 WNa/toa reference. PRNs are restricted to >= 6 (GEO PRNs 1-5
+    transmit D2 at 500 sps). Reference analog: the Channels_B1 chain
+    (BEIDOU_B1I_* adapters + beidou_b1i_telemetry_decoder_gs.cc).
     """
     from gnss_sdr_tpu_torch.models.nav import beidou_d1
 
@@ -476,9 +542,38 @@ def build_beidou_b1i_scenario(rcv_llh=(np.deg2rad(41.275), np.deg2rad(1.9876), 8
         eph = ephs[prn]
         a3, a2, a1, a0 = _fit_t_tx(eph, lambda _t: rcv, t0_gps,
                                    duration_s)
-        subframes = [beidou_d1.encode_subframe(
-            (k % 3) + 1, tow_bits_start + 6.0 * k, eph)
-            for k in range(n_subframes)]
+        if almanac_pages:
+            from gnss_sdr_tpu_torch.models.almanac import BeidouAlmanac
+            alms = [BeidouAlmanac.from_ephemeris(ephs[p]) for p in chosen]
+            # SF4 pages carry SV 1-24; SV 25-30 ride SF5 pages 1-6,
+            # alternating with the page-8 WNa/toa reference
+            sf4_alms = [a for a in alms if a.prn <= 24] or alms[:1]
+            sf5_alms = [a for a in alms if a.prn > 24]
+            subframes = []
+            for k in range(n_subframes):
+                sow = tow_bits_start + 6.0 * k
+                fraid = (k % 5) + 1
+                cyc = k // 5
+                if fraid == 4:
+                    a = sf4_alms[cyc % len(sf4_alms)]
+                    subframes.append(beidou_d1.encode_almanac_page(
+                        4, sow, a, pnum=a.prn))
+                elif fraid == 5:
+                    if sf5_alms and cyc % 2 == 1:
+                        a = sf5_alms[(cyc // 2) % len(sf5_alms)]
+                        subframes.append(beidou_d1.encode_almanac_page(
+                            5, sow, a, pnum=a.prn - 24))
+                    else:
+                        subframes.append(
+                            beidou_d1.encode_almanac_reference_page(
+                                sow, alms[0].toa, wna=alms[0].wna))
+                else:
+                    subframes.append(beidou_d1.encode_subframe(
+                        fraid, sow, eph))
+        else:
+            subframes = [beidou_d1.encode_subframe(
+                (k % 3) + 1, tow_bits_start + 6.0 * k, eph)
+                for k in range(n_subframes)]
         bits = np.concatenate(subframes)
         sats.append(generator.SatParams(
             prn=prn, cn0_dbhz=cn0_dbhz,
@@ -619,7 +714,7 @@ def _handoff_chunk(signal: str, fs: float, n: int, seed: int) -> np.ndarray:
 def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
                           chunks: int = 1, extended: bool = False,
                           n_channels: int = 6, fs: float | None = None,
-                          seed: int = 11) -> dict:
+                          seed: int = 11, carrier_kf: bool = False) -> dict:
     """An open-loop tracking input: 5 generated satellites of ``signal``
     ("1C": GPS L1 C/A at 2 MSps; "1B": Galileo E1-B with its E1-C pilot at
     4 MSps, BOC(1,1) tables at 2 entries per chip; "L5": GPS L5I with its
@@ -640,7 +735,8 @@ def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
     10-chip code for GPS L1, the E1-C CS25 for Galileo E1, the data
     component's NH10 / CS20 / NH20 for L5 / E5a / B1I / B3I, as the
     receiver installs it after symbol sync). L2C and GLONASS have no
-    extended case.
+    extended case. ``carrier_kf`` tracks the carrier with the Kalman loop
+    once a channel leaves pull-in.
 
     Returns dict(cfg, chunk [L, 2] float32 numpy, state (the carry on
     ``device``), tables [C, Lt] or [C, 2, Lt] float32 numpy, sec [C, 32]
@@ -652,7 +748,8 @@ def tracking_handoff_case(device, *, signal: str = "1C", pilot: bool = False,
 
     spec = constants.SIGNALS[signal]
     fs = fs or _HANDOFF_FS[signal]
-    cfg = trk.default_config(spec, fs, 100, track_pilot=pilot)
+    cfg = trk.default_config(spec, fs, 100, track_pilot=pilot,
+                             carrier_kf=carrier_kf)
     if chunks > 1:
         cl = cfg.chunk_len * chunks
         cfg = _dc.replace(cfg, chunk_len=cl, n_steps=int(

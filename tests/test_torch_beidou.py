@@ -264,7 +264,7 @@ def test_geo_and_b3_refused():
     """GEO PRNs 1-5 (D2) and B3I were refused before they were ported: now
     GEO PRNs get the D2 decoder and stay in a B1 receiver's pool, B3 builds
     its decoder, receiver and scenario; an SBAS PRN (>= 120 on the L1 C/A
-    code, the one telemetry still to port) raises, naming it."""
+    code, the last telemetry ported) gets the SBAS decoder."""
     for prn in (1, 5):
         assert isinstance(ttlm.make_telemetry("B1", prn),
                           ttlm.BeidouB1IGeoTelemetry)
@@ -278,8 +278,7 @@ def test_geo_and_b3_refused():
                                          prns=(1, 3, 6, 9, 13)),
                       device="cpu").groups
     assert g.acq_pool == [1, 3, 6, 9, 13]
-    with pytest.raises(NotImplementedError, match="PRN 120"):
-        ttlm.make_telemetry("1C", 120)
+    assert isinstance(ttlm.make_telemetry("1C", 120), ttlm.SbasL1Telemetry)
 
 
 # ------------------------------------------------------------------- RINEX

@@ -177,8 +177,8 @@ def test_d2_telemetry_equal_jax(chunk):
 
 
 def test_make_telemetry_as_jax():
-    """B1 / B3, GEO / MEO: the decoder class JAX picks; SBAS PRNs (>= 120
-    on the L1 C/A code) are the one decoder still to port."""
+    """B1 / B3, GEO / MEO: the decoder class JAX picks; on the L1 C/A code
+    too, SBAS PRNs (>= 120) included."""
     for sig in ("B1", "B3"):
         for prn in (1, 3, 5, 6, 13, 37):
             assert type(ttlm.make_telemetry(sig, prn)).__name__ == \
@@ -186,8 +186,9 @@ def test_make_telemetry_as_jax():
     for sig, prn in (("1G", 1), ("2G", 24)):
         assert type(ttlm.make_telemetry(sig, prn)).__name__ == \
             type(jtlm.make_telemetry(sig, prn)).__name__
-    with pytest.raises(NotImplementedError, match="120"):
-        ttlm.make_telemetry("1C", 120)
+    for prn in (5, 120, 123, 138):
+        assert type(ttlm.make_telemetry("1C", prn)).__name__ == \
+            type(jtlm.make_telemetry("1C", prn)).__name__
 
 
 # ---------------------------------------------------------------- scenario

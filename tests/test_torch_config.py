@@ -97,12 +97,17 @@ def test_registry_errors_match_jax():
 
 
 def test_check_ported_names_role_and_block():
+    # the Kalman tracking block and the SBAS decoder are ported: they bind
+    # as JAX binds them and pass
+    for text in ("Tracking_1C.implementation=GPS_L1_CA_KF_Tracking\n",
+                 "Channels_1C.count=4\nTelemetryDecoder_1C.implementation="
+                 "SBAS_L1_Telemetry_Decoder\n"):
+        jc, tc = _both(text)
+        cfg = tini.receiver_config_from_ini(tc)
+        assert (dataclasses.asdict(cfg)
+                == dataclasses.asdict(jini.receiver_config_from_ini(jc)))
+        treg.check_ported(tc, cfg.signal_plan)
     for text, named in (
-            ("Tracking_1C.implementation=GPS_L1_CA_KF_Tracking\n",
-             "Tracking_1C.implementation=GPS_L1_CA_KF_Tracking"),
-            ("Channels_1C.count=4\n"
-             "TelemetryDecoder_1C.implementation=SBAS_L1_Telemetry_Decoder\n",
-             "TelemetryDecoder_1C.implementation=SBAS_L1_Telemetry_Decoder"),
             ("SignalSource.implementation=Custom_UDP_Signal_Source\n",
              "SignalSource.implementation=Custom_UDP_Signal_Source"),
             ("SignalSource.implementation=UHD_Signal_Source\n"

@@ -73,13 +73,17 @@ def test_cli_modules_are_walked():
 
 
 # the signal slices' host modules (GPS L5 / L2C CNAV, Galileo F/NAV, BeiDou
-# D1 / D2, GLONASS GNAV): the probe above imports each of them
+# D1 / D2, GLONASS GNAV, SBAS, the almanacs, the Kalman filter): the probe
+# above imports each of them
 SIGNAL_MODULES = (
     "gnss_sdr_tpu_torch.models.nav.gps_cnav",
     "gnss_sdr_tpu_torch.models.nav.galileo_fnav",
     "gnss_sdr_tpu_torch.models.nav.beidou_d1",
     "gnss_sdr_tpu_torch.models.nav.beidou_d2",
     "gnss_sdr_tpu_torch.models.nav.glonass_gnav",
+    "gnss_sdr_tpu_torch.models.nav.sbas",
+    "gnss_sdr_tpu_torch.models.almanac",
+    "gnss_sdr_tpu_torch.ops.kalman",
     "gnss_sdr_tpu_torch.receiver.telemetry",
     "gnss_sdr_tpu_torch.utils.scenario")
 

@@ -89,13 +89,16 @@ def test_discriminators_match_jax(rnd):
     dt = rnd["f32"](C, lo=1e-3, hi=2e-2)
     T = torch.from_numpy
     J = jnp.asarray
-    _close(tdisc.dll_nc_emlp(T(e), T(l), 0.5), jdisc.dll_nc_emlp(J(e), J(l), 0.5))
+    for spacing in (0.5, 0.25):
+        code_err, phase_err, freq_err, prev_abs = tdisc.loop_discriminators(
+            T(e), T(l), T(p), T(prev), T(dt), spacing)
+        _close(code_err, jdisc.dll_nc_emlp(J(e), J(l), spacing))
+        _close(phase_err, jdisc.pll_costas(J(p)))
+        _close(freq_err, jdisc.fll_atan2(J(prev), J(p), J(dt)))
+        _close(prev_abs, jnp.abs(J(prev)))
     _close(tdisc.dll_nc_vemlp(T(prev), T(e), T(l), T(p)),
            jdisc.dll_nc_vemlp(J(prev), J(e), J(l), J(p)))
-    _close(tdisc.pll_costas(T(p)), jdisc.pll_costas(J(p)))
     _close(tdisc.pll_atan2(T(p)), jdisc.pll_atan2(J(p)))
-    _close(tdisc.fll_atan2(T(prev), T(p), T(dt)),
-           jdisc.fll_atan2(J(prev), J(p), J(dt)))
 
 
 def _atan_inputs(n, seed=41):
@@ -145,10 +148,11 @@ def test_discriminator_signs():
     error; prompt rotated by +phi -> positive phase error."""
     early = torch.tensor([10.0 + 0j], dtype=torch.complex64)
     late = torch.tensor([5.0 + 0j], dtype=torch.complex64)
-    assert float(tdisc.dll_nc_emlp(early, late)[0]) > 0
     p = torch.tensor([np.exp(1j * 0.3)], dtype=torch.complex64)
-    assert float(tdisc.pll_costas(p)[0]) == pytest.approx(0.3 / (2 * np.pi),
-                                                          rel=1e-5)
+    code_err, phase_err, _, _ = tdisc.loop_discriminators(
+        early, late, p, p, torch.tensor([1e-3]), 0.5)
+    assert float(code_err[0]) > 0
+    assert float(phase_err[0]) == pytest.approx(0.3 / (2 * np.pi), rel=1e-5)
 
 
 def test_loop_filters_match_jax(rnd):

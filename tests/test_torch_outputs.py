@@ -225,15 +225,26 @@ def test_rinex_writers_byte_identical(tmp_path, frozen_clock, version):
         assert ((tmp_path / f"port.{ext}").read_bytes()
                 == (tmp_path / f"jax.{ext}").read_bytes()), ext
     # a Kepler record named GLONASS is refused as JAX refuses it (GLONASS
-    # writes GlonassEphemeris geph records); SBAS GEO records are not ported
+    # writes GlonassEphemeris geph records); an SBAS GEO record (MT9) is
+    # written as JAX writes it
     for mod, e in ((trinex, next(iter(tephs.values()))),
                    (jrinex, next(iter(jephs.values())))):
         with pytest.raises(ValueError, match="GlonassEphemeris"):
             mod.RinexNavWriter(tmp_path / "r.nav").write_ephemeris(
                 e, system="R")
-    with pytest.raises(NotImplementedError, match="SBAS"):
-        trinex.RinexNavWriter(tmp_path / "s.nav").write_ephemeris(
-            types.SimpleNamespace(agf0_s=0.0, prn=120), system="S")
+    from gnss_sdr_tpu.models.nav import sbas as jsbas
+    from gnss_sdr_tpu_torch.models.nav import sbas as tsbas
+    geo = dict(prn=123, iodn=3, t0_s=43216.0, ura=4,
+               pos_m=(-3.1e7, 2.9e7, 1.2e5), vel_m_s=(1.25, -0.5, 3.0),
+               acc_m_s2=(1e-4, -2e-4, 5e-5), agf0_s=-3.5e-7,
+               agf1_s_s=1.1e-11)
+    for mod, nav_mod, tag in ((trinex, tsbas, "port"), (jrinex, jsbas, "jax")):
+        w = mod.RinexNavWriter(tmp_path / f"s_{tag}.nav")
+        w.write_ephemeris(nav_mod.SbasGeoEphemeris(**geo), system="S")
+        w.close()
+    text = (tmp_path / "s_port.nav").read_text()
+    assert "S23 " in text
+    assert text == (tmp_path / "s_jax.nav").read_text()
 
 
 def test_rtcm_encoders_match_jax():

@@ -323,8 +323,11 @@ def test_unported_options_raise():
         ttrk.TrackingConfig(fs=FS, code_length_chips=1023,
                             code_rate_cps=1.023e6, carrier_freq_hz=1.57542e9,
                             stride_plan=(1023, 2000, 2046000, 2064))
+    # the Kalman carrier loop is ported: a KF config runs (tests/
+    # test_torch_kalman_ramp.py holds it against JAX)
     cfg = dataclasses.replace(ttrk.default_config(constants.GPS_L1_CA, FS, 1),
                               carrier_kf=True)
-    with pytest.raises(NotImplementedError):
-        ttrk.track_chunk(cfg, torch.zeros((cfg.chunk_len + cfg.n_max, 2)),
-                         ttrk.init_state(1, device="cpu"), torch.ones((1, 1023)))
+    st, out = ttrk.track_chunk(
+        cfg, torch.zeros((cfg.chunk_len + cfg.n_max, 2)),
+        ttrk.init_state(1, device="cpu"), torch.ones((1, 1023)))
+    assert out.valid.shape == (cfg.n_steps, 1) and st.kf_p.shape == (1, 3, 3)

@@ -291,8 +291,12 @@ def test_wrapper_checks():
     for exc, change in bad_cases:
         with pytest.raises(exc):
             tk._check(cfg, **dict(good, **change))
-    with pytest.raises(NotImplementedError):
-        tk._check(dataclasses.replace(cfg, carrier_kf=True), **good)
+    # the Kalman carrier loop is taken, and its parameter word selects the
+    # kernel's KF variants (csrc/tracking.cu variant())
+    kf = dataclasses.replace(cfg, carrier_kf=True)
+    tk._check(kf, **good)
+    assert (tk.make_params(kf, 3, n, 1023, 0).carrier_kf,
+            tk.make_params(cfg, 3, n, 1023, 0).carrier_kf) == (1, 0)
     # pilot tracking takes [C, 2, Lt] tables (and one more tap's carry)
     with pytest.raises(ValueError):
         tk._check(dataclasses.replace(cfg, track_pilot=True), **good)
