@@ -169,10 +169,30 @@ Phases, one line each, with their seconds:
             with the SBAS corrections off and on, its checks: PRN 123
             tracked, >= 3 messages, the mask, every MT25 daf0 within 2^-31,
             the last 40 fixes' 3D error e_off > 4 m, e_on < 3.5 m, e_on <
-            e_off / 3. Each of phases 11-17 launches K2 once
-            per tracking dispatch and K1 never. The CPU rehearsal runs 3 s
-            of each (and of kf and sbas) without the checks or the CLI
-            runs (the L2C conf's 32-PRN,
+            e_off / 3.
+18. rtk     tests/test_e2e_rtk.py: the receiver (K2) on its 42 s capture
+            (the multisource L1 scenario, 6 satellites, 47 dB-Hz, 2 MSps,
+            seed 101), then RtkEngine(sigma_pr_m=2.5, mode="kinematic")
+            on its observables against a synthetic base 3 km east (1005 +
+            1019, an MSM7 epoch per 25th observable epoch, ambiguities and
+            noise from default_rng(71)): >= 60 float epochs, the last 20
+            float baselines' mean ENU error < 2 m, >= 3 fixed epochs, the
+            median of the last 3 fixes < 2 m, the receiver phase's double
+            differences at observable epochs 600 / 1000 / 1400 integer
+            (>= 12 checked, mean fractional part < 0.15, worst < 0.45
+            cycles); with the seconds of each step.
+19. cli_rtk conf/rtk_rover_ntrip.conf through the CLI on that capture as
+            ishort (capture path and rate replaced, the atmosphere models
+            off, the base at a caster thread on 127.0.0.1 that checks the
+            mountpoint BASE1 and the conf's Basic credentials, then streams
+            1005 + 1019 and the base's last 20 MSM7 epochs): the request
+            seen, the stream delivered, the RTK rover mode logged, RTK
+            solutions, exit 0, the mean of the last 10 fixes (its GGA
+            sentences) within 2D < 2 m / 3D < 5 m.
+            Each of phases 11-19 launches K2 once per tracking dispatch
+            and K1 never. The CPU rehearsal runs 3 s of each (and of kf
+            and sbas; 4 s of rtk, with its CLI run) without the checks or
+            the other CLI runs (the L2C conf's 32-PRN,
             321-bin search of 80,000-sample windows is a card's work).
 
 The line before the last two is the kernels' JSON record, then the card's
@@ -2387,6 +2407,324 @@ def phase_cli_shipped(device, run: dict, conf_name: str, fs: float,
     return got["k2"]
 
 
+# tests/test_e2e_rtk.py's capture (the multisource L1 scenario: 42 s, 6
+# satellites, 47 dB-Hz, 2 MSps, seed 101) and its synthetic base: 3 km
+# east of the truth, integer ambiguities from default_rng(71), one MSM7
+# epoch per 25th observable epoch; the NTRIP run streams the last 20 of
+# them (what RtcmBaseStation keeps)
+RTK_T0, RTK_DUR, RTK_SEED = 352800.08, 42.0, 101
+RTK_BASE_ENU = (3000.0, -800.0, 5.0)
+RTK_CLI_EPOCHS = 20
+
+
+def _rtk_base_msm(sc, base_ecef, obs, rng, n_bas) -> tuple:
+    """tests/test_e2e_rtk.py's base epoch for one rover epoch: the base's
+    observations of the rover's PRNs at the rover epoch's millisecond-
+    aligned tow (code noise 0.3 m, phase noise 5 mm); (tow, MSM7 frame)."""
+    from gnss_sdr_tpu_torch import constants as C
+    from gnss_sdr_tpu_torch.receiver.pvt import rtcm
+    from gnss_sdr_tpu_torch.utils import constellation
+
+    lam = C.SPEED_OF_LIGHT_M_S / 1_575_420_000.0
+    o0 = obs[0]
+    tow = round((o0.t_tx_sv + o0.pseudorange_m / C.SPEED_OF_LIGHT_M_S)
+                * 1e3) / 1e3
+    msm = []
+    for o in obs:
+        bo = constellation.simulate_observation(sc.ephemerides[o.prn],
+                                                base_ecef, tow)
+        msm.append(rtcm.MsmObservation(
+            prn=o.prn, signal_id=2,
+            pseudorange_m=bo.pseudorange_m + rng.normal(0, 0.3),
+            phase_range_m=(bo.pseudorange_m + n_bas[o.prn] * lam
+                           + rng.normal(0, 0.005) * lam),
+            phase_rate_m_s=-bo.doppler_hz * lam, cn0_dbhz=45.0))
+    return tow, rtcm.frame(rtcm.encode_msm7(rtcm.MSM7_GPS, 55,
+                                            int(round(tow * 1e3)), msm))
+
+
+def _rtk_dd_fractions(sc, rx, base_ecef, epochs=(600, 1000, 1400)) -> list:
+    """tests/test_e2e_rtk.py's double differences of the receiver's carrier
+    phase against the geometric base at observable epochs ``epochs`` (five
+    or more satellites): the fractional parts, in cycles."""
+    from gnss_sdr_tpu_torch import constants as C
+    from gnss_sdr_tpu_torch.utils import constellation
+
+    c = C.SPEED_OF_LIGHT_M_S
+    lam = c / 1_575_420_000.0
+    om = 7.2921151467e-5
+
+    def rho(p, r):
+        th = om * np.linalg.norm(p - r) / c
+        rot = np.array([[np.cos(th), np.sin(th), 0],
+                        [-np.sin(th), np.cos(th), 0], [0, 0, 1]])
+        return np.linalg.norm(rot @ p - r)
+
+    fracs = []
+    for k in epochs:
+        if k >= len(rx.obs_log) or len(rx.obs_log[k][1]) < 5:
+            continue
+        obs = rx.obs_log[k][1]
+        tow = round((obs[0].t_tx_sv + obs[0].pseudorange_m / c) * 1e3) / 1e3
+        sd = {}
+        for o in obs:
+            eph = sc.ephemerides[o.prn]
+            bo = constellation.simulate_observation(eph, base_ecef, tow)
+            dts_r = eph.clock_offset(o.t_tx_sv)
+            p_r, _ = eph.position_velocity(o.t_tx_sv - dts_r)
+            dts_b = eph.clock_offset(bo.t_tx_sv)
+            p_b, _ = eph.position_velocity(bo.t_tx_sv - dts_b)
+            sdm = ((rho(p_r, sc.rcv_ecef) - c * dts_r)
+                   - (rho(p_b, base_ecef) - c * dts_b))
+            sd[o.prn] = (o.carrier_phase_cycles * lam - bo.pseudorange_m
+                         - sdm) / lam
+        ref = sorted(sd)[0]
+        fracs += [abs((v - sd[ref] + 0.5) % 1.0 - 0.5)
+                  for p, v in sd.items() if p != ref]
+    return fracs
+
+
+def phase_rtk(device, duration_s: float, check: bool, smi: str = "") -> dict:
+    """tests/test_e2e_rtk.py on the card: the port's receiver (K2 on the
+    card) tracks the 42 s capture, then the RTK rover runs on its
+    observables against the synthetic base (1005 + 1019, then one MSM7
+    epoch per 25th observable epoch) in RtkEngine(sigma_pr_m=2.5,
+    mode="kinematic"). Its checks: >= 60 float epochs, the mean ENU error
+    of the last 20 float baselines < 2 m, >= 3 fixed epochs, the median of
+    the last 3 fixes < 2 m, and the double differences of the receiver's
+    carrier phase at observable epochs 600 / 1000 / 1400 integer: >= 12
+    checked, mean fractional part < 0.15 and worst < 0.45 cycles."""
+    from gnss_sdr_tpu_torch.receiver.pvt import geodesy, rtcm
+    from gnss_sdr_tpu_torch.receiver.pvt.rtk_engine import (RtcmBaseStation,
+                                                            RtkEngine)
+    from gnss_sdr_tpu_torch.utils import scenario
+
+    t0 = time.perf_counter()
+    sc = scenario.build_gps_l1_scenario(t0_gps=RTK_T0, duration_s=duration_s,
+                                        n_sats=6, cn0_dbhz=47.0, fs=FS)
+    x = sc.generate(seed=RTK_SEED, device=device)
+    gen_s = time.perf_counter() - t0
+    _line("rtk", t0, step="generate", samples=len(x), prns=sorted(sc.prns))
+    run = _receiver_run(device, "rtk", sc, x, FS, signal="1C", n_channels=6)
+    rx = run["rx"]
+
+    t1 = time.perf_counter()
+    lat, lon, _ = sc.rcv_llh
+    base_ecef = sc.rcv_ecef + geodesy.enu_to_ecef_offset(
+        np.array(RTK_BASE_ENU), lat, lon)
+    rng = np.random.default_rng(71)
+    n_bas = {p: int(rng.integers(-300, 300)) for p in sc.prns}
+    head = b"".join([rtcm.frame(rtcm.encode_1005(55, base_ecef))]
+                    + [rtcm.frame(rtcm.encode_1019(sc.ephemerides[p]))
+                       for p in sc.prns])
+    station = RtcmBaseStation()
+    station.push_bytes(head)
+    engine = RtkEngine(station, sigma_pr_m=2.5, mode="kinematic")
+    fixed, float_enu, frames = [], [], []
+    for k, (tick, obs) in enumerate(rx.obs_log):
+        if k % 25 or len(obs) < 5:         # one RTK epoch per 0.5 s
+            continue
+        tow, frame = _rtk_base_msm(sc, base_ecef, obs, rng, n_bas)
+        frames.append(frame)
+        station.push_bytes(frame)
+        engine.push_rover_epoch(tick, obs)
+        if engine.solutions:
+            sol = engine.solutions[-1]
+            float_enu.append(geodesy.ecef_to_enu(
+                sol.baseline_m + base_ecef - sc.rcv_ecef, lat, lon))
+            if sol.fixed:
+                fixed.append(sol.rover_ecef.copy())
+    engine_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    fracs = _rtk_dd_fractions(sc, rx, base_ecef)
+    dd_s = time.perf_counter() - t2
+    late = (float(np.linalg.norm(np.stack(float_enu[-20:]).mean(axis=0)))
+            if float_enu else float("inf"))
+    med = (float(np.linalg.norm(np.median(np.stack([
+        geodesy.ecef_to_enu(p - sc.rcv_ecef, lat, lon) for p in fixed[-3:]]),
+        axis=0))) if fixed else float("inf"))
+    mean_frac = float(np.mean(fracs)) if fracs else float("inf")
+    worst = max(fracs, default=float("inf"))
+    _line("rtk", t0, step="checks", float_epochs=len(float_enu),
+          late_float_err_m=f"{late:.3f}", fixed_epochs=len(fixed),
+          median_fix_err_m=f"{med:.3f}", dd_checked=len(fracs),
+          dd_mean_frac_cyc=f"{mean_frac:.4f}", dd_worst_frac_cyc=f"{worst:.4f}",
+          base_epochs=len(frames), k2_launches=run["k2_launches"],
+          dispatches=rx.tracking_dispatches, generate_s=f"{gen_s:.3f}",
+          receiver_s=f"{run['wall_s']:.3f}", engine_s=f"{engine_s:.3f}",
+          dd_s=f"{dd_s:.3f}", card=f'"{smi}"')
+    bad = []
+    if check:
+        bad = [name for name, ok in (
+            ("tracked", run["tracked"] == sorted(sc.prns)),
+            ("float epochs", len(float_enu) >= 60), ("float", late < 2.0),
+            ("fixed epochs", len(fixed) >= 3), ("fixes", med < 2.0),
+            ("dd checked", len(fracs) >= 12), ("dd mean", mean_frac < 0.15),
+            ("dd worst", worst < 0.45)) if not ok]
+    if bad:
+        raise SystemExit(f"rtk phase failed its checks: {bad}")
+    return dict(sc=sc, x=x, head=head, frames=frames,
+                k2_launches=run["k2_launches"],
+                k1_launches=run["k1_launches"])
+
+
+def _gga_enu(nmea: str, sc) -> np.ndarray:
+    """The ENU offsets from the scenario's truth of the fixes in an NMEA
+    file's GGA sentences, [N, 3] in metres."""
+    from gnss_sdr_tpu_torch.receiver.pvt import geodesy
+
+    out = []
+    for ln in nmea.splitlines():
+        f = ln.split(",")
+        if not ln.startswith("$GPGGA") or len(f) < 10 or not f[2]:
+            continue
+        lat = (int(f[2][:2]) + float(f[2][2:]) / 60.0) * (
+            1 if f[3] == "N" else -1)
+        lon = (int(f[4][:3]) + float(f[4][3:]) / 60.0) * (
+            1 if f[5] == "E" else -1)
+        pos = geodesy.geodetic_to_ecef(np.deg2rad(lat), np.deg2rad(lon),
+                                       float(f[9]))
+        out.append(geodesy.ecef_to_enu(pos - sc.rcv_ecef, *sc.rcv_llh[:2]))
+    return np.array(out).reshape(-1, 3)
+
+
+class _NtripCaster:
+    """A one-client NTRIP v1 caster thread on 127.0.0.1 (a free port): it
+    reads the request, checks the mountpoint and the Basic credentials,
+    answers ``ICY 200 OK`` and ``payload`` (else the sourcetable), and holds
+    the connection until the client closes it. ``close`` joins the thread
+    and closes every socket."""
+
+    def __init__(self, mount: str, user: str, password: str, payload: bytes):
+        import base64
+        import socket
+        import threading
+
+        self.want = (f"GET /{mount} ".encode(),
+                     "Authorization: Basic {}".format(base64.b64encode(
+                         f"{user}:{password}".encode()).decode()).encode())
+        self.payload = payload
+        self.request, self.sent, self.error = b"", 0, None
+        self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._srv.bind(("127.0.0.1", 0))
+        self._srv.listen(1)
+        self._srv.settimeout(240.0)
+        self.port = self._srv.getsockname()[1]
+        self._conn = None
+        self._thread = threading.Thread(target=self._serve, daemon=True)
+        self._thread.start()
+
+    def _serve(self) -> None:
+        try:
+            self._conn, _ = self._srv.accept()
+            self._conn.settimeout(240.0)
+            while b"\r\n\r\n" not in self.request:
+                data = self._conn.recv(4096)
+                if not data:
+                    return
+                self.request += data
+            if all(w in self.request for w in self.want):
+                self._conn.sendall(b"ICY 200 OK\r\n" + self.payload)
+                self.sent = len(self.payload)
+            else:
+                self._conn.sendall(b"SOURCETABLE 200 OK\r\n\r\n")
+                return
+            while self._conn.recv(4096):       # until the client closes
+                pass
+        except OSError as e:                   # timeout or reset
+            self.error = repr(e)
+
+    def close(self) -> None:
+        for s in (self._conn, self._srv):
+            if s is not None:
+                s.close()
+        self._thread.join(timeout=10.0)
+
+
+def phase_cli_rtk(device, rtk: dict, check: bool) -> int:
+    """conf/rtk_rover_ntrip.conf through the CLI on the rtk phase's capture
+    written as ishort: its capture path and rate (2 MSps) replaced,
+    PVT.trop_model / iono_model OFF (the simulation has no atmosphere),
+    PVT.rtk_base_address / _port at a caster thread (_NtripCaster) that
+    checks the request's mountpoint BASE1 and the conf's credentials and
+    streams 1005 + 1019 and the base's last RTK_CLI_EPOCHS MSM7 epochs.
+    Checks: the caster saw the request and delivered the stream, the CLI
+    logged its RTK rover mode line, exited 0, its RTK engine produced
+    solutions, and the mean of its last 10 fixes (its NMEA GGA sentences)
+    lies within 2D < 2 m / 3D < 5 m. Returns the CLI's K2 launches."""
+    platform = "cuda" if device.type == "cuda" else "cpu"
+    sc = rtk["sc"]
+    payload = rtk["head"] + b"".join(rtk["frames"][-RTK_CLI_EPOCHS:])
+    conf_text = (ROOT / "conf" / "rtk_rover_ntrip.conf").read_text()
+    keys = dict(line.split("=", 1) for line in conf_text.splitlines()
+                if line.startswith("PVT.rtk_ntrip_"))
+    caster = _NtripCaster(keys["PVT.rtk_ntrip_mountpoint"],
+                          keys["PVT.rtk_ntrip_user"],
+                          keys["PVT.rtk_ntrip_password"], payload)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = pathlib.Path(tmp)
+            t0 = time.perf_counter()
+            _write_ishort(tmp / "capture.ishort", rtk["x"])
+            lines = []
+            for ln in conf_text.splitlines():
+                if ln.startswith("SignalSource.filename="):
+                    ln = f"SignalSource.filename={tmp / 'capture.ishort'}"
+                elif ln.startswith("SignalSource.sampling_frequency="):
+                    ln = f"SignalSource.sampling_frequency={int(FS)}"
+                elif ln.startswith("PVT.rtk_base_address="):
+                    ln = "PVT.rtk_base_address=127.0.0.1"
+                elif ln.startswith("PVT.rtk_base_port="):
+                    ln = f"PVT.rtk_base_port={caster.port}"
+                lines.append(ln)
+            lines += ["PVT.trop_model=OFF", "PVT.iono_model=OFF",
+                      f"PVT.nmea_dump_filename={tmp / 'fix.nmea'}"]
+            conf = tmp / "rx.conf"
+            conf.write_text("\n".join(lines) + "\n")
+            write_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            stdout, stderr = _run_cli(conf, platform)
+            cli_s = time.perf_counter() - t1
+            gga = _gga_enu((tmp / "fix.nmea").read_text(), sc)
+    finally:
+        caster.close()
+    got = _summary(stdout)
+    err = _cli_fix_error(got, sc)
+    mean10 = gga[-10:].mean(axis=0) if len(gga) else np.full(3, np.inf)
+    last10 = (float(np.linalg.norm(mean10[:2])), float(np.linalg.norm(mean10)))
+    m = re.search(r"rtk solutions: (\d+) \((\d+) fixed\)", stdout)
+    n_sol, n_fix = (int(m.group(1)), int(m.group(2))) if m else (0, 0)
+    mode_line = "RTK rover mode (kinematic): base 127.0.0.1" in stderr
+    _line("cli_rtk", t0, write_s=f"{write_s:.3f}", cli_seconds=f"{cli_s:.3f}",
+          request=caster.request.split(b"\r\n")[0].decode(errors="replace"),
+          sent_bytes=caster.sent, payload_bytes=len(payload),
+          base_epochs=min(len(rtk["frames"]), RTK_CLI_EPOCHS),
+          mode_line=mode_line, rtk_solutions=n_sol, rtk_fixed=n_fix,
+          tracked=got["tracked"], tracking_dispatches=got["dispatches"],
+          k2_launches=got["k2"], k1_launches=got["k1"],
+          caster_error=caster.error, fixes=len(gga),
+          last10_err_2d_m=f"{last10[0]:.3f}",
+          last10_err_3d_m=f"{last10[1]:.3f}",
+          **{f"last_fix_{k}": f"{v:.3f}" for k, v in err.items()})
+    bad = [name for name, ok in (
+        ("device line", f"device: {platform}" in stderr),
+        ("request", caster.request.startswith(b"GET /BASE1 ")),
+        ("stream delivered", caster.sent == len(payload)),
+        ("mode line", mode_line),
+        ("K1 launches", got["k1"] == 0),
+        ("K2 launches", device.type != "cuda"
+         or got["k2"] == got["dispatches"] > 0)) if not ok]
+    if check:
+        bad += [name for name, ok in (
+            ("rtk solutions", n_sol > 0),
+            ("tracked PRNs", set(sc.prns) <= set(got["tracked"])),
+            ("fixes", len(gga) >= 10 and last10[0] < 2.0
+             and last10[1] < 5.0)) if not ok]
+    if bad:
+        raise SystemExit(f"the RTK CLI run failed its checks: {bad}")
+    return got["k2"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
@@ -2418,6 +2756,8 @@ def main(argv=None) -> int:
         phase_sbas(device, sbas_capture(device, 3.0), check=False)
         for name in SIGNAL_RUNS:
             phase_signal(name, device, 3.0, check=False)
+        phase_cli_rtk(device, phase_rtk(device, 4.0, check=False),
+                      check=False)
         return 0
 
     t0 = time.perf_counter()
@@ -2512,6 +2852,12 @@ def main(argv=None) -> int:
 
     # SBAS L1: tests/test_e2e_sbas.py's corrections off and on
     sbas = phase_sbas(device, sbas_capture(device, SBAS_DUR), check=True)
+    # the RTK rover on the receiver's carrier phase (tests/test_e2e_rtk.py),
+    # then conf/rtk_rover_ntrip.conf through the CLI against a local caster
+    rtk = phase_rtk(device, RTK_DUR, check=True, smi=smi)
+    cli_rtk_k2 = phase_cli_rtk(device, rtk, check=True)
+    rtk_k1, rtk_k2 = rtk["k1_launches"], rtk["k2_launches"]
+    del rtk
 
     a, k2c8 = timing["a_main_path"], timing_k2["k2_c8"]
     kf8 = timing_kf["k2_kf_c8"]
@@ -2528,6 +2874,7 @@ def main(argv=None) -> int:
         "l5_launches": wide["L5"]["k1_launches"],
         "e5a_launches": wide["5X"]["k1_launches"],
         **{f"{name}_launches": r["k1"] for name, r in runs.items()},
+        "rtk_launches": rtk_k1,
         "max_abs_err": k1_err,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
@@ -2581,6 +2928,8 @@ def main(argv=None) -> int:
                                ("glo_l2", "k2_glo2_c4"), ("b3i", "k2_b3i_c4"))
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "sbas_launches": sbas["k2_launches"],
+        "rtk_launches": rtk_k2,
+        "cli_rtk_launches": cli_rtk_k2,
         "library_ms": None,
     }, {
         "name": "tracking_chunk_kf",

@@ -6,9 +6,11 @@ assistance file, the output products, the telecommand server, the keyboard
 listener, the summary lines and exit code 42 on a ``reset`` telecommand.
 
 The receiver runs on ``cuda:0`` unless ``--platform cpu`` is given; without
-a card the CLI fails (no fallback to the CPU). Not ported yet, each raising
-``NotImplementedError``: multi-source confs, ``--devices`` > 1, SUPL
-assistance (``GNSS-SDR.SUPL_*``).
+a card the CLI fails (no fallback to the CPU). The RTK rover (TCP or NTRIP
+base) and the PPP modes run on the host beside it. Not ported yet, each
+raising ``NotImplementedError`` naming its key or argument: multi-source
+confs, ``--devices`` > 1, SUPL assistance (``GNSS-SDR.SUPL_*``), the notch
+input filter and the LabSat source.
 """
 
 from __future__ import annotations
@@ -162,6 +164,10 @@ def main(argv=None) -> int:
         print(f"last fix: lat={f.lat_rad*57.29577951308232:.6f} "
               f"lon={f.lon_rad*57.29577951308232:.6f} h={f.height_m:.1f} m "
               f"({f.n_sats} sats, pdop {f.pdop:.2f})")
+    rtk = getattr(outputs, "rtk_engine", None)
+    if rtk is not None:
+        print(f"rtk solutions: {len(rtk.solutions)} "
+              f"({sum(bool(s.fixed) for s in rtk.solutions)} fixed)")
     # the reset telecommand requests a full receiver restart; the harness
     # script relaunches on this exit code (exit 42 = restart)
     return 42 if rx.restart_requested else 0

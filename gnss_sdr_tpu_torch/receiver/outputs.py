@@ -13,9 +13,13 @@ Config keys honored (reference names where they exist):
   PVT.rtcm_station_id, PVT.rtcm_MSM_rate_ms, PVT.rtcm_MT1019_rate_ms
   Monitor.enable_monitor=true + Monitor.client_addresses + Monitor.udp_port
   PVT.enable_monitor=true + PVT.monitor_client_addresses + PVT.monitor_udp_port
+  PVT.rtk_base_address / rtk_base_port [+ rtk_ntrip_mountpoint,
+      rtk_ntrip_user, rtk_ntrip_password]    RTK rover (TCP or NTRIP base)
+  PVT.positioning_mode, PVT.rtk_sigma_pr_m   RTK mode / PPP_Static,
+                                             PPP_Kinematic
+  PVT.ppp_ar, PVT.ppp_obs_spacing_s, PVT.ppp_code_bias_m   PPP engine
 
-Not ported yet (``NotImplementedError`` naming the key): the RTK rover
-(PVT.rtk_base_address) and the PPP modes (PVT.positioning_mode=PPP_*).
+Every output product of the JAX package is ported.
 """
 
 from __future__ import annotations
@@ -128,7 +132,7 @@ def attach_outputs(rx, conf) -> OutputSet:
                     if sys == "G":
                         srv.send(rtcm_mod.encode_1019(eph))
                     elif sys == "E":
-                        srv.send(rtcm_mod.encode_1045(eph))   # raises
+                        srv.send(rtcm_mod.encode_1045(eph))
 
         def push_rtcm_obs(tick, observables):
             o0 = observables[0]
@@ -148,7 +152,7 @@ def attach_outputs(rx, conf) -> OutputSet:
                         cn0_dbhz=o.cn0_dbhz))
             epoch_ms = int(round(tow * 1e3))
             for sys, obs_list in by_sys.items():
-                msg = {"G": rtcm_mod.MSM7_GPS}.get(sys)
+                msg = {"G": rtcm_mod.MSM7_GPS, "E": rtcm_mod.MSM7_GAL}.get(sys)
                 if msg and obs_list:
                     srv.send(rtcm_mod.encode_msm7(msg, station, epoch_ms,
                                                   obs_list))
@@ -160,13 +164,59 @@ def attach_outputs(rx, conf) -> OutputSet:
 
     base_host = prop("PVT.rtk_base_address", "")
     if base_host:
-        raise NotImplementedError(
-            f"PVT.rtk_base_address={base_host}: the RTK rover is not ported "
-            f"yet")
+        from gnss_sdr_tpu_torch.receiver.pvt.rtk_engine import (
+            RtcmBaseStation, RtkEngine)
+        station = RtcmBaseStation()
+        mount = str(prop("PVT.rtk_ntrip_mountpoint", "")).strip()
+        port = int(prop("PVT.rtk_base_port", 2101))
+        if mount:
+            # NTRIP caster transport (reference STR_NTRIPCLI)
+            station.connect_ntrip(
+                base_host, port, mount,
+                username=str(prop("PVT.rtk_ntrip_user", "")) or None,
+                password=str(prop("PVT.rtk_ntrip_password", "")) or None)
+        else:
+            station.connect_tcp(base_host, port)
+        # positioning_mode (reference rtklib PVT.positioning_mode):
+        # Single -> instantaneous DD; Static / Kinematic -> filtered RTK;
+        # DGPS/DGNSS -> code differential; Moving_Base -> per-epoch base
+        # fix + DD baseline (rtklib PMODE_DGPS / PMODE_MOVEB)
+        mode_key = str(prop("PVT.positioning_mode", "Single"))
+        mode = {"Static": "static", "Kinematic": "kinematic",
+                "DGPS": "dgps", "DGNSS": "dgps",
+                "Moving_Base": "moving_base"}.get(mode_key, "instantaneous")
+        engine = RtkEngine(station,
+                           sigma_pr_m=float(prop("PVT.rtk_sigma_pr_m", 0.5)),
+                           mode=mode)
+        rx.obs_sinks.append(engine.push_rover_epoch)
+        out.closers.append(station.close)
+        out.rtk_engine = engine
+        log.info("RTK rover mode (%s): base %s:%s%s", mode, base_host, port,
+                 f" /{mount}" if mount else "")
+
     ppp_mode_key = str(prop("PVT.positioning_mode", "Single"))
-    if ppp_mode_key in ("PPP_Static", "PPP_Kinematic"):
-        raise NotImplementedError(
-            f"PVT.positioning_mode={ppp_mode_key}: PPP is not ported yet")
+    if not base_host and ppp_mode_key in ("PPP_Static", "PPP_Kinematic"):
+        # PPP modes (rtklib PMODE_PPP_*): dual-frequency iono-free filter
+        # over the receiver's own observables, seeded from the first
+        # single-point fix
+        from gnss_sdr_tpu_torch.receiver.pvt.ppp_engine import PppEngine
+        engine = PppEngine(
+            rx.ephemerides, x0_ecef=(0.0, 0.0, 0.0),
+            mode=("kinematic" if ppp_mode_key == "PPP_Kinematic"
+                  else "static"),
+            ambiguity_resolution=bool(prop("PVT.ppp_ar", True)),
+            # decimate the tracking-rate observables to the DLL-noise
+            # decorrelation time (PppEngine.obs_spacing_s rationale)
+            obs_spacing_s=float(prop("PVT.ppp_obs_spacing_s", 0.5)),
+            # per-satellite systematic code bias assumed by the AR search
+            # (PppArFilter.code_bias_m): 0.15 m covers this receiver's
+            # ZOH replica biases so narrow-lane fixes the data cannot
+            # support are declined instead of held wrong
+            code_bias_m=float(prop("PVT.ppp_code_bias_m", 0.15)))
+        rx.obs_sinks.append(engine.push_epoch)
+        rx.fix_sinks.append(lambda sol: engine.seed_position(sol.pos_ecef))
+        out.ppp_engine = engine
+        log.info("PPP mode: %s", ppp_mode_key)
 
     def _addr_list(addr_key, port_key, default_port):
         addrs = str(prop(addr_key, "")).strip()

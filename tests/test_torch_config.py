@@ -41,14 +41,14 @@ UNPORTED = {
     "gps_l2c": None,
     "gps_l5": None,
     "hybrid_gps_galileo": None,
-    "ppp_static": None,           # PPP: refused by attach_outputs
+    "ppp_static": None,           # PPP (test_torch_outputs attaches it)
     "gps_l1_notch": ("registry", "InputFilter.implementation=Notch_Filter"),
     "labsat3": ("registry",
                 "SignalSource.implementation=Labsat_Signal_Source"),
     "gps_l1_file": None,
     "gps_l1_realtime_tpu": None,
     "gps_l1_supl": None,          # SUPL: refused by the CLI, see test_torch_cli
-    "rtk_rover": None,            # RTK: refused by attach_outputs
+    "rtk_rover": None,            # RTK (test_torch_outputs attaches them)
     "rtk_rover_ntrip": None,
 }
 

@@ -97,6 +97,25 @@ def test_signal_modules_are_walked():
     assert set(SIGNAL_MODULES) <= names, set(SIGNAL_MODULES) - names
 
 
+# the precise-positioning slice's modules (RTK rover, NTRIP, PPP): the probe
+# above imports each of them
+PVT_MODULES = tuple(f"gnss_sdr_tpu_torch.{m}" for m in (
+    "io.ntrip", "receiver.pvt.lambda_ilsq", "receiver.pvt.rtk",
+    "receiver.pvt.rtk_filter", "receiver.pvt.rtk_engine",
+    "receiver.pvt.tides", "receiver.pvt.sp3", "receiver.pvt.ionex",
+    "receiver.pvt.corrections", "receiver.pvt.ppp", "receiver.pvt.ppp_ar",
+    "receiver.pvt.ppp_engine"))
+
+
+def test_pvt_modules_are_walked():
+    import pkgutil
+
+    import gnss_sdr_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(gnss_sdr_tpu_torch.__path__,
+                                                   "gnss_sdr_tpu_torch.")}
+    assert set(PVT_MODULES) <= names, set(PVT_MODULES) - names
+
+
 def test_icd_table_copies_equal_jax():
     """Each of the port's ``data/icd_tables_*.json`` holds entries of the
     JAX package's ``data/icd_tables.json``, unchanged: the B3I G2 seeds

@@ -15,6 +15,7 @@ what was written.
 
 import dataclasses
 import datetime
+import pathlib
 import socket
 import sys
 import time
@@ -32,6 +33,7 @@ from gnss_sdr_tpu.receiver import outputs as jout
 from gnss_sdr_tpu.receiver import receiver as jrx
 from gnss_sdr_tpu.receiver.pvt import rinex as jrinex
 from gnss_sdr_tpu.receiver.pvt import rtcm as jrtcm
+from gnss_sdr_tpu_torch import constants
 from gnss_sdr_tpu_torch.config import ini as tini
 from gnss_sdr_tpu_torch.models.ephemeris import IonoParams, UtcParams
 from gnss_sdr_tpu_torch.receiver import outputs as tout
@@ -42,6 +44,7 @@ from gnss_sdr_tpu_torch.receiver.pvt import rinex as trinex
 from gnss_sdr_tpu_torch.receiver.pvt import rtcm as trtcm
 from gnss_sdr_tpu_torch.receiver.pvt.solver import PvtSolution
 from gnss_sdr_tpu_torch.utils import constellation
+from torch_twin import Caster
 
 torch.set_num_threads(1)   # one thread per xdist worker
 
@@ -73,6 +76,25 @@ def _ephemerides():
         e.iode, e.iodc, e.ura = 17 + k, 300 + k, 2
         e.af0, e.af1, e.tgd = 1.5e-5 * (k - 2), -2.3e-12, -1.1e-8
         port[("G", prn)] = e
+    jax = {key: JEph(**dataclasses.asdict(e)) for key, e in port.items()}
+    return port, jax
+
+
+GAL_PRNS = (5, 17, 24, 30)
+
+
+def _galileo_ephemerides():
+    """Equal Galileo ephemerides (Galileo GM, clock terms on the 60 s grid
+    1045 carries) in each package's class."""
+    ephs = constellation.almanac_constellation(week=WEEK)
+    port = {}
+    for k, prn in enumerate(GAL_PRNS):
+        e = ephs[prn]
+        e.gm = constants.GM_EARTH_GAL
+        e.toc = e.toe = 352800.0
+        e.iode, e.ura = 60 + k, 107
+        e.af0, e.af1, e.tgd = 2.5e-5 * (k - 1), -1.7e-12, 3.2e-9
+        port[("E", prn)] = e
     jax = {key: JEph(**dataclasses.asdict(e)) for key, e in port.items()}
     return port, jax
 
@@ -119,10 +141,11 @@ def _conf(tmp, tag, udp_port):
             f"Monitor.udp_port={udp_port}\n")
 
 
-def _drive(rx, ephs, out, fixes):
+def _drive(rx, ephs, out, fixes, observables=None):
     """Give the receiver tracking channels, ephemerides and fixes, and push
-    observables / fixes through its sinks; returns the RTCM bytes a
-    localhost client read."""
+    observables (``observables(k)``, default ``_observables``) / fixes
+    through its sinks; returns the RTCM bytes a localhost client read."""
+    observables = observables or _observables
     g = rx.groups[0]
     for ch, prn in zip(g.channels, PRNS):
         ch.prn, ch.state = prn, "tracking"
@@ -136,7 +159,7 @@ def _drive(rx, ephs, out, fixes):
         time.sleep(0.01)
     for k, sol in enumerate(fixes):
         rx.fixes.append(sol)
-        obs = _observables(k)
+        obs = observables(k)
         for sink in rx.obs_sinks:
             sink(1000 * k, obs)
         for sink in rx.fix_sinks:
@@ -273,11 +296,14 @@ def test_rtcm_encoders_match_jax():
                                tephs[("G", PRNS[0])].iode)
     np.testing.assert_allclose(trtcm.decode_1005(pairs[0][0])["ecef"], pos,
                                atol=1e-4)
-    for bad in (lambda: trtcm.encode_1045(tephs[("G", 3)]),
-                lambda: trtcm.encode_msm(1087, 7, 0, obs),
-                lambda: trtcm.encode_msm(1097, 7, 0, obs)):
-        with pytest.raises(NotImplementedError):
-            bad()
+    # Galileo's 1045 and the GLONASS / Galileo MSM7 come out as JAX's
+    gal, jgal = _galileo_ephemerides()
+    for key in gal:
+        assert (trtcm.frame(trtcm.encode_1045(gal[key]))
+                == jrtcm.frame(jrtcm.encode_1045(jgal[key])))
+    for msg in (trtcm.MSM7_GLO, trtcm.MSM7_GAL):
+        assert (trtcm.frame(trtcm.encode_msm(msg, 7, 352810500, obs))
+                == jrtcm.frame(jrtcm.encode_msm(msg, 7, 352810500, jobs)))
 
 
 def test_protobuf_monitor_needs_its_package(monkeypatch):
@@ -291,12 +317,161 @@ def test_protobuf_monitor_needs_its_package(monkeypatch):
         monitor.ProtobufGnssSynchroMonitor([("127.0.0.1", 9)])
 
 
-def test_unported_outputs_name_their_keys():
-    for text, key in (("PVT.rtk_base_address=127.0.0.1\n",
-                       "PVT.rtk_base_address"),
-                      ("PVT.positioning_mode=PPP_Static\n",
-                       "PVT.positioning_mode=PPP_Static")):
-        rx = trx.Receiver(trx.ReceiverConfig(fs=2e6), device="cpu")
-        with pytest.raises(NotImplementedError, match=key):
-            tout.attach_outputs(rx, tini.InMemoryConfiguration(
-                tini._parse(text)))
+def _hybrid_observables(k: int):
+    """GPS L1 C/A and Galileo E1-B observables of one epoch."""
+    rng = np.random.default_rng(200 + k)
+    return [ChannelObservable(
+        prn=prn, signal=sig, t_tx_sv=TOW0 + 0.1 * k - 0.072 - 1e-3 * i,
+        pseudorange_m=2.1e7 + 3.1e5 * i + rng.uniform(0, 10),
+        carrier_phase_cycles=1.1e8 + 1.7e6 * i + rng.uniform(0, 1),
+        doppler_hz=rng.uniform(-4000, 4000),
+        cn0_dbhz=rng.uniform(40, 50))
+        for i, (sig, prn) in enumerate([("1C", p) for p in PRNS[:4]]
+                                       + [("1B", p) for p in GAL_PRNS])]
+
+
+def test_rtcm_server_galileo_matches_jax():
+    """The RTCM server of a GPS + Galileo receiver: 1005, 1019 and 1045 at
+    PVT.rtcm_MT1019_rate_ms, MSM7 GPS (1077) and Galileo (1097) per epoch,
+    the port's stream equal to JAX's frame for frame."""
+    tephs, jephs = _ephemerides()
+    tgal, jgal = _galileo_ephemerides()
+    tephs.update(tgal)
+    jephs.update(jgal)
+    text = ("PVT.flag_rtcm_server=true\nPVT.rtcm_tcp_port=0\n"
+            "PVT.rtcm_MT1019_rate_ms=200\n")
+    plan = (("1C", 4, PRNS[:4]), ("1B", 4, GAL_PRNS))
+    got = {}
+    for tag, ini, mod, rxmod, ephs in (
+            ("jax", jini, jout, jrx, jephs), ("port", tini, tout, trx, tephs)):
+        cfg = rxmod.ReceiverConfig(fs=4e6, signal_plan=plan)
+        rx = (rxmod.Receiver(cfg) if rxmod is jrx
+              else rxmod.Receiver(cfg, device="cpu"))
+        out = mod.attach_outputs(rx, ini.InMemoryConfiguration(
+            ini._parse(text)))
+        got[tag] = _drive(rx, ephs, out, _fixes(), _hybrid_observables)
+    jframes = jrtcm.deframe(got["jax"])
+    tframes = trtcm.deframe(got["port"])
+    assert len(tframes) == len(jframes)
+    for t, j in zip(tframes, jframes):
+        np.testing.assert_array_equal(t, j)
+    assert got["port"] == got["jax"]
+    nums = [trtcm.message_number(f) for f in tframes]
+    assert set(nums) == {1005, 1019, 1045, 1077, 1097}
+    # ephemerides with the 1st fix and every 2nd (200 ms / 100 ms)
+    assert nums.count(1045) == 3 * len(GAL_PRNS)
+    assert nums.count(1097) == nums.count(1077) == 4
+    back = trtcm.decode_1045(tframes[nums.index(1045)])
+    assert back.prn == GAL_PRNS[0] and back.gm == constants.GM_EARTH_GAL
+    head, msm = trtcm.decode_msm7(tframes[nums.index(1097)])
+    assert sorted(o.prn for o in msm) == sorted(GAL_PRNS)
+
+
+def _shipped(name: str, **keys) -> str:
+    """conf/<name>.conf's lines with ``keys`` appended (a later line wins)."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    text = (root / "conf" / f"{name}.conf").read_text()
+    return text + "".join(f"{k}={v}\n" for k, v in keys.items())
+
+
+def _attach_both(text: str) -> dict:
+    """Each package's attach_outputs on a CPU receiver from ``text``'s
+    binding; returns {tag: (receiver, outputs)}."""
+    got = {}
+    for tag, ini, mod, rxmod in (("jax", jini, jout, jrx),
+                                 ("port", tini, tout, trx)):
+        conf = ini.InMemoryConfiguration(ini._parse(text))
+        cfg = ini.receiver_config_from_ini(conf)
+        rx = (rxmod.Receiver(cfg) if rxmod is jrx
+              else rxmod.Receiver(cfg, device="cpu"))
+        got[tag] = (rx, mod.attach_outputs(rx, conf))
+    return got
+
+
+def _engine_fields(engine) -> dict:
+    return {k: v for k, v in vars(engine).items()
+            if isinstance(v, (bool, int, float, str, type(None)))}
+
+
+@pytest.mark.parametrize("conf,mode", [
+    ("rtk_rover", "instantaneous"), ("rtk_rover_ntrip", "kinematic")])
+def test_rtk_confs_attach_as_jax(conf, mode):
+    """The shipped RTK confs, their base on a local socket (a plain TCP
+    base, an NTRIP caster checking the mountpoint and the conf's Basic
+    credentials): both packages attach an RtkEngine of the same mode and
+    parameters on the observables sinks and close the station's stream."""
+    ntrip = conf.endswith("ntrip")
+    caster = Caster(ntrip)
+    try:
+        got = _attach_both(_shipped(conf, **{
+            "PVT.rtk_base_address": "127.0.0.1",
+            "PVT.rtk_base_port": caster.port}))
+        fields = {}
+        for tag, (rx, out) in got.items():
+            eng = out.rtk_engine
+            assert type(eng).__name__ == "RtkEngine"
+            assert any(getattr(s, "__self__", None) is eng
+                       for s in rx.obs_sinks)
+            fields[tag] = _engine_fields(eng)
+            out.close()
+        assert fields["port"] == fields["jax"]
+        assert fields["port"]["mode"] == mode
+        assert fields["port"]["sigma_pr_m"] == 0.5
+    finally:
+        caster.close()
+    if ntrip:
+        assert len(caster.requests) == 2
+        import base64
+        cred = base64.b64encode(b"user:pass").decode()
+        for req in caster.requests:
+            assert req.startswith(b"GET /BASE1 HTTP/1.0")
+            assert f"Authorization: Basic {cred}".encode() in req
+        assert caster.requests[0] == caster.requests[1]
+
+
+@pytest.mark.parametrize("key,mode", [
+    ("Single", "instantaneous"), ("Static", "static"),
+    ("Kinematic", "kinematic"), ("DGPS", "dgps"), ("DGNSS", "dgps"),
+    ("Moving_Base", "moving_base")])
+def test_rtk_positioning_modes_as_jax(key, mode):
+    """PVT.positioning_mode (and PVT.rtk_sigma_pr_m) map to the same
+    engine mode in both packages, over a plain TCP base."""
+    caster = Caster(ntrip=False)
+    try:
+        got = _attach_both(
+            f"PVT.rtk_base_address=127.0.0.1\n"
+            f"PVT.rtk_base_port={caster.port}\n"
+            f"PVT.positioning_mode={key}\nPVT.rtk_sigma_pr_m=1.25\n")
+        fields = {tag: _engine_fields(out.rtk_engine)
+                  for tag, (_, out) in got.items()}
+        for _, out in got.values():
+            out.close()
+    finally:
+        caster.close()
+    assert fields["port"] == fields["jax"]
+    assert (fields["port"]["mode"], fields["port"]["sigma_pr_m"]) == (
+        mode, 1.25)
+
+
+@pytest.mark.parametrize("text,mode,ar", [
+    (None, "static", True),
+    ("PVT.positioning_mode=PPP_Kinematic\nPVT.ppp_ar=false\n"
+     "PVT.ppp_obs_spacing_s=1.0\nPVT.ppp_code_bias_m=0.25\n",
+     "kinematic", False)], ids=["ppp_static", "ppp_kinematic_keys"])
+def test_ppp_confs_attach_as_jax(text, mode, ar):
+    """conf/ppp_static.conf (and the PPP keys) attach a PppEngine with the
+    same mode, AR switch, obs spacing and code-bias gate in both packages,
+    on the observables and fix sinks."""
+    got = _attach_both(_shipped("ppp_static") if text is None else text)
+    fields = {}
+    for tag, (rx, out) in got.items():
+        eng = out.ppp_engine
+        assert type(eng).__name__ == "PppEngine"
+        assert any(getattr(s, "__self__", None) is eng for s in rx.obs_sinks)
+        assert len(rx.fix_sinks) == 1
+        fields[tag] = dict(_engine_fields(eng), **_engine_fields(eng.filter))
+        out.close()
+    assert fields["port"] == fields["jax"]
+    assert fields["port"]["mode"] == mode
+    # no AR: the integer search is off by an infinite ratio threshold
+    assert (fields["port"]["ratio_threshold"] == np.inf) == (not ar)
