@@ -194,6 +194,39 @@ Phases, one line each, with their seconds:
             and sbas; 4 s of rtk, with its CLI run) without the checks or
             the other CLI runs (the L2C conf's 32-PRN,
             321-bin search of 80,000-sample windows is a card's work).
+20. cli_supl  conf/gps_l1_supl.conf (assisted acquisition) through the CLI
+            on the main capture's first 14 s, its SUPL server replaced by the
+            port's QA SuplServer on 127.0.0.1 (port 0) serving the
+            scenario's ephemerides, an almanac, the reference location /
+            time and Doppler hints; then with SUPL off: the server's three
+            sessions, every ephemeris and hint applied, every satellite
+            tracked, the first fix earlier than without SUPL (run after
+            cli, on its capture).
+21. conditioning  pulse blanking, the notch, the beamformer (4
+            elements), freq_translate and direct_resample on the card
+            against the same functions on the CPU (100 ms of a GPS L1
+            capture with the CW jammer, pulses): the worst error within
+            1e-4 max|y| + 1e-5, the notch's bins and the blanked segments
+            equal, each op's ms per 100 ms of samples.
+22. cli_notch conf/gps_l1_notch.conf (8 channels, 2 MSps) through the CLI
+            on tests/test_input_filter_chain.py's jammed scenario (4 s),
+            with the notch and with Pass_Through: >= 4 satellites tracked
+            with it and more than without; the filter's host seconds.
+23. cli_labsat3 conf/labsat3.conf through the CLI on a 5 s LabSat 3 file
+            (4-bit, 16.368 MSps, ~41 MB, deleted after the run), decimated
+            8:1 on the card: every satellite tracked.
+24. front_end_cal  tests/test_front_end_cal.py's 3 ppm capture through
+            run_front_end_cal on the card: the 5 satellites found, the
+            offset within 200 Hz / 0.15 ppm.
+25. sources one capture written as SPIR int1, SPIR GSS6450, a raw
+            4-element array, 2-bit packed complex and NSR files, sent as UDP
+            datagrams and from a local rtl_tcp server, read back through the
+            port's sources equal to the numpy decoders; a UHD conf with the
+            mock driver feeding the receiver for 2.8 s: every satellite
+            tracked.
+            Each CLI run of phases 20-25 launches K2 once per tracking
+            dispatch and K1 never; the CPU rehearsal runs them short and
+            without their checks.
 
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit, then the result line. Float32 matrix products run in
@@ -1351,13 +1384,8 @@ def _write_ishort(path, x: np.ndarray) -> None:
 def _conf_from_shipped(capture, keys: dict) -> str:
     """conf/gps_l1_file.conf with its capture path replaced and ``keys``
     appended (a later line wins)."""
-    lines = []
-    for ln in (ROOT / "conf" / "gps_l1_file.conf").read_text().splitlines():
-        if ln.startswith("SignalSource.filename="):
-            ln = f"SignalSource.filename={capture}"
-        lines.append(ln)
-    lines += [f"{k}={v}" for k, v in keys.items()]
-    return "\n".join(lines) + "\n"
+    return _shipped_conf("gps_l1_file.conf",
+                         {"SignalSource.filename": capture}, keys)
 
 
 def _run_cli(conf_path, platform: str, *extra) -> tuple[str, str]:
@@ -2725,6 +2753,540 @@ def phase_cli_rtk(device, rtk: dict, check: bool) -> int:
     return got["k2"]
 
 
+# ------------------------------------ input conditioning, sources, SUPL ---
+# tests/test_input_filter_chain.py's jammer: a CW tone 30x the noise
+# amplitude at 0.31 MHz, on its 5-satellite, 47 dB-Hz, 4 s scenario (seed 3)
+JAM_HZ, JAM_AMP = 0.31e6, 30.0
+LABSAT_FS, LABSAT_DUR = 16.368e6, 5.0
+SUPL_DUR = 14.0
+
+
+def _jammer(n: int, fs: float = FS) -> np.ndarray:
+    return (JAM_AMP * np.exp(2j * np.pi * JAM_HZ * np.arange(n) / fs)
+            ).astype(np.complex64)
+
+
+def _shipped_conf(conf_name: str, replace: dict, extra: dict) -> str:
+    """``conf/<conf_name>`` with the lines of the keys in ``replace``
+    replaced and the ``extra`` keys appended (a later line wins)."""
+    lines = []
+    for ln in (ROOT / "conf" / conf_name).read_text().splitlines():
+        key = ln.split("=", 1)[0]
+        lines.append(f"{key}={replace[key]}" if key in replace else ln)
+    lines += [f"{k}={v}" for k, v in extra.items()]
+    return "\n".join(lines) + "\n"
+
+
+def _cli_checks(name: str, device, got: dict, stderr: str, bad: list,
+                tracks: bool = True) -> None:
+    """The checks every CLI run of the slice shares: the device line, K1
+    never, K2 once per tracking dispatch on the card (and some dispatch,
+    unless the run is one that ``tracks`` nothing: the jammed capture
+    without its notch)."""
+    platform = "cuda" if device.type == "cuda" else "cpu"
+    bad = list(bad) + [label for label, ok in (
+        ("device line", f"device: {platform}" in stderr),
+        ("K1 launches", got["k1"] == 0),
+        ("K2 launches", device.type != "cuda"
+         or (got["k2"] == got["dispatches"]
+             and (got["dispatches"] > 0 or not tracks)))) if not ok]
+    if bad:
+        raise SystemExit(f"the {name} CLI run failed its checks: {bad}")
+
+
+def phase_conditioning(device, seconds: float = 0.1) -> None:
+    """The input-conditioning ops on ``device`` against the same functions
+    on the CPU, on ``seconds`` of a generated GPS L1 capture (5 satellites,
+    47 dB-Hz, 2 MSps, seed 3): pulse_blanking (25x pulses on 2 % of the
+    64-sample segments), notch_excision (the CW jammer), beamform (a
+    4-element array: the capture plus unit noise per element, steered to
+    20 degrees), freq_translate (0.25 MHz from sample 4e7) and
+    direct_resample (2 of every 5 samples). Each output within |dy| <=
+    1e-4 max|y| + 1e-5 of the CPU's (direct_resample exact), the notch's
+    kept bins and the blanked segments equal; each op's time per 100 ms of
+    samples, CUDA events over 50 calls after a warm-up."""
+    from gnss_sdr_tpu_torch.ops import beamformer, fir, interference, iq
+    from gnss_sdr_tpu_torch.utils import scenario
+
+    t0 = time.perf_counter()
+    sc = scenario.build_gps_l1_scenario(duration_s=seconds, n_sats=5,
+                                        cn0_dbhz=47.0, fs=FS)
+    x = sc.generate(seed=3)
+    n = len(x)
+    rng = np.random.default_rng(5)
+    pulsed = x.copy()
+    for s in rng.choice(n // 64, size=n // 64 // 50, replace=False):
+        pulsed[64 * s: 64 * s + 64] *= 25.0
+    arr = np.stack([x + ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                         / np.sqrt(2.0)).astype(np.complex64)
+                    for _ in range(4)])
+    w2 = iq.split(beamformer.ula_steering_weights(4, np.deg2rad(20.0)))
+    host = {"pulsed": iq.split(pulsed), "jammed": iq.split(x + _jammer(n)),
+            "x": iq.split(x),
+            "arr": np.stack([arr.real, arr.imag], -1).astype(np.float32),
+            "w": w2}
+    ops = {
+        "pulse_blanking": (lambda t: interference.pulse_blanking(
+            t["pulsed"], 10.0, 64), lambda t: interference.pulse_blank_mask(
+                t["pulsed"], 10.0, 64)),
+        "notch_excision": (lambda t: interference.notch_excision(
+            t["jammed"], 12.0), lambda t: interference.notch_keep_mask(
+                t["jammed"], 12.0)),
+        "beamform": (lambda t: beamformer.beamform(t["arr"], t["w"]), None),
+        "freq_translate": (lambda t: fir.freq_translate(
+            t["x"], 0.25e6, FS, n0=40_000_000), None),
+        "direct_resample": (lambda t: fir.direct_resample(
+            t["x"], 2, 5, n * 2 // 5), None),
+    }
+    cpu = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in host.items()}
+    dev = {k: v.to(device) for k, v in cpu.items()}
+    _line("conditioning", t0, step="inputs", samples=n, elements=4)
+    for name, (op, mask) in ops.items():
+        t0 = time.perf_counter()
+        want, got = op(cpu).numpy(), op(dev).cpu().numpy()
+        err = float(np.abs(got - want).max())
+        tol = (0.0 if name == "direct_resample"
+               else 1e-4 * float(np.abs(want).max()) + 1e-5)
+        agree = None
+        if mask is not None:
+            m_cpu, m_dev = mask(cpu).numpy(), mask(dev).cpu().numpy()
+            agree = f"{int((m_cpu == m_dev).sum())}/{m_cpu.size}"
+            masked = int((m_cpu if name == "pulse_blanking" else ~m_cpu).sum())
+        ms = "not measured"
+        if device.type == "cuda":
+            op(dev)
+            ms = f"{_time_ms(lambda: op(dev), 50) * (0.1 * FS / n):.4f}"
+        _line("conditioning", t0, op=name, max_abs_err=f"{err:.3e}",
+              tol=f"{tol:.3e}", mask_agree=agree,
+              **({"masked": masked} if mask is not None else {}),
+              ms_per_100ms=ms)
+        if err > tol or (agree is not None and not np.array_equal(m_cpu,
+                                                                  m_dev)):
+            raise SystemExit(f"{name} on {device} disagrees with the CPU: "
+                             f"err {err:.3e} (tol {tol:.3e}), masks {agree}")
+
+
+def phase_cli_notch(device, seconds: float = 4.0, check: bool = True) -> int:
+    """conf/gps_l1_notch.conf (8 channels at 2 MSps) through the CLI on
+    tests/test_input_filter_chain.py's scenario plus the jammer, generated
+    on the card and written as ishort: once as shipped (Notch_Filter) and
+    once with InputFilter.implementation=Pass_Through. Checks: >= 4 of the
+    scenario's satellites tracked with the notch and more than without it;
+    the host seconds of the filter. Returns the notch run's K2 launches."""
+    from gnss_sdr_tpu_torch.utils import scenario
+
+    platform = "cuda" if device.type == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    sc = scenario.build_gps_l1_scenario(duration_s=seconds, n_sats=5,
+                                        cn0_dbhz=47.0, fs=FS)
+    x = sc.generate(seed=3, device=device)
+    x += _jammer(len(x))
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        _write_ishort(tmp / "capture.ishort", x)
+        del x
+        _line("cli_notch", t0, step="generate", seconds_of_capture=seconds,
+              prns=sorted(sc.prns))
+        for impl in ("Notch_Filter", "Pass_Through"):
+            conf = tmp / f"{impl}.conf"
+            conf.write_text(_shipped_conf(
+                "gps_l1_notch.conf",
+                {"SignalSource.filename": tmp / "capture.ishort",
+                 "InputFilter.implementation": impl}, {}))
+            t0 = time.perf_counter()
+            stdout, stderr = _run_cli(conf, platform)
+            got = _summary(stdout)
+            m = re.search(r"input filter: (\w+) (\d+) blocks, ([\d.]+) s",
+                          stdout)
+            got["filter_blocks"] = int(m.group(2)) if m else 0
+            got["filter_s"] = float(m.group(3)) if m else 0.0
+            got["sats"] = sorted(set(sc.prns) & set(got["tracked"]))
+            runs[impl] = got
+            _line("cli_notch", t0, run=impl, tracked=got["tracked"],
+                  scenario_tracked=len(got["sats"]),
+                  filter_blocks=got["filter_blocks"],
+                  filter_host_s=f"{got['filter_s']:.3f}",
+                  tracking_dispatches=got["dispatches"],
+                  k2_launches=got["k2"], k1_launches=got["k1"])
+            _cli_checks("cli_notch", device, got, stderr, [],
+                        tracks=impl == "Notch_Filter")
+    notch, plain = runs["Notch_Filter"], runs["Pass_Through"]
+    if check and not (len(notch["sats"]) >= 4
+                      and len(notch["sats"]) > len(plain["sats"])
+                      and notch["filter_blocks"] > 0):
+        raise SystemExit(f"cli_notch: {notch['sats']} tracked with the "
+                         f"notch, {plain['sats']} without")
+    return notch["k2"]
+
+
+def phase_cli_supl(device, main_run: dict, seconds: float = SUPL_DUR,
+                   check: bool = True) -> int:
+    """conf/gps_l1_supl.conf (assisted PCPS acquisition) through the CLI on
+    the main capture's first ``seconds`` s, its SUPL server and port
+    replaced by the port's QA SuplServer on 127.0.0.1 (port 0, three
+    sessions) serving the scenario's ephemerides, an almanac of every
+    satellite of the constellation, the reference location and time and
+    each satellite's Doppler / code phase; then the same run with SUPL off.
+    Checks: the server answered three sessions (start, pos-init, the acks
+    of the paged ephemerides) without error, the CLI applied every
+    ephemeris and acquisition hint, every satellite tracked, and the first
+    fix at an earlier stream time than without SUPL (none at all counts
+    as later). Returns the SUPL run's K2 launches."""
+    from gnss_sdr_tpu_torch.io.supl import SuplServer
+    from gnss_sdr_tpu_torch.models.almanac import GpsAlmanac
+
+    platform = "cuda" if device.type == "cuda" else "cpu"
+    sc = main_run["sc"]
+    ephs = [sc.ephemerides[p] for p in sc.prns]
+    week = ephs[0].week
+    srv = SuplServer(
+        ephemerides=ephs, wna=week % 256,
+        almanacs=[GpsAlmanac.from_ephemeris(e)
+                  for _, e in sorted(sc.ephemerides.items())],
+        ref_llh=(float(np.degrees(sc.rcv_llh[0])),
+                 float(np.degrees(sc.rcv_llh[1])), float(sc.rcv_llh[2])),
+        gps_week=week, gps_tow=sc.t0_gps, n_batches=2, n_sessions=3,
+        acq_assist=[(s.prn, s.doppler_hz, (s.code_delay_s * 1.023e6) % 1023)
+                    for s in sc.sats])
+    srv.start()
+    runs = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = pathlib.Path(tmp)
+            t0 = time.perf_counter()
+            _write_ishort(tmp / "capture.ishort",
+                          main_run["x"][: int(seconds * FS)])
+            for supl in (True, False):
+                conf = tmp / f"supl_{supl}.conf"
+                conf.write_text(_shipped_conf("gps_l1_supl.conf", {
+                    "SignalSource.filename": tmp / "capture.ishort",
+                    "GNSS-SDR.SUPL_gps_enabled": str(supl).lower(),
+                    "GNSS-SDR.SUPL_gps_ephemeris_server": "127.0.0.1",
+                    "GNSS-SDR.SUPL_gps_ephemeris_port": srv.port,
+                    "GNSS-SDR.assistance_file": tmp / f"agnss_{supl}.json"},
+                    {"PVT.trop_model": "OFF", "PVT.iono_model": "OFF"}))
+                t1 = time.perf_counter()
+                stdout, stderr = _run_cli(conf, platform)
+                got = _summary(stdout)
+                m = re.search(r"supl: (\d+) ephemerides, (\d+) almanacs, "
+                              r"(\d+) acquisition hints", stdout)
+                got["supl"] = tuple(map(int, m.groups())) if m else None
+                m = re.search(r"first fix: tow=([\d.]+) s", stdout)
+                got["ttff_s"] = (float(m.group(1)) - sc.t0_gps if m
+                                 else float("inf"))
+                if supl:
+                    srv.join(timeout=30)
+                runs[supl] = got
+                _line("cli_supl", t1, supl=supl, assistance=got["supl"],
+                      tracked=got["tracked"], first_fix_stream_s=(
+                          f"{got['ttff_s']:.3f}"), tracking_dispatches=(
+                          got["dispatches"]), k2_launches=got["k2"],
+                      k1_launches=got["k1"])
+                _cli_checks("cli_supl", device, got, stderr, [])
+    finally:
+        srv.join(timeout=5)
+    on, off = runs[True], runs[False]
+    _line("cli_supl", t0, server_sessions_error=srv.error,
+          server_acks=srv.n_acks, posinit=srv.got_posinit is not None,
+          first_fix_gain_s=f"{off['ttff_s'] - on['ttff_s']:.3f}")
+    bad = [name for name, ok in (
+        ("server", srv.error is None and not srv.is_alive()
+         and srv.n_acks >= 1 and srv.got_posinit is not None),
+        ("assistance applied", on["supl"] == (len(ephs), len(sc.ephemerides),
+                                              len(sc.sats)))) if not ok]
+    if check:
+        bad += [name for name, ok in (
+            ("tracked PRNs", set(sc.prns) <= set(on["tracked"])),
+            ("earlier first fix", on["ttff_s"] < off["ttff_s"])) if not ok]
+    if bad:
+        raise SystemExit(f"the cli_supl run failed its checks: {bad}")
+    return on["k2"]
+
+
+def phase_cli_labsat3(device, seconds: float = LABSAT_DUR,
+                      check: bool = True) -> int:
+    """conf/labsat3.conf through the CLI on a LabSat 3 file of a GPS L1
+    scenario (6 satellites, 47 dB-Hz, seed 17) at 16.368 MSps, generated
+    on the card and written as 4-bit words by the port's encoder
+    (io/sources.py encode_labsat_words) into a temporary directory that is
+    deleted after the run: the CLI decodes it with the native library and
+    decimates it 8:1 to 2.046 MSps on the card. Checks: every satellite
+    tracked. Returns the CLI's K2 launches."""
+    from gnss_sdr_tpu_torch.io import sources
+    from gnss_sdr_tpu_torch.utils import scenario
+
+    platform = "cuda" if device.type == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    sc = scenario.build_gps_l1_scenario(duration_s=seconds, n_sats=6,
+                                        cn0_dbhz=47.0, fs=LABSAT_FS)
+    x = sc.generate(seed=17, device=device)
+    gen_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        base = pathlib.Path(tmp) / "capture"
+        with open(f"{base}_0000.LS3", "wb") as f:
+            f.write(sources.labsat_header(4))
+            sources.encode_labsat_words(x[: len(x) // 4 * 4], 4).astype(
+                "<u2").tofile(f)
+        del x
+        size = pathlib.Path(f"{base}_0000.LS3").stat().st_size
+        conf = pathlib.Path(tmp) / "rx.conf"
+        conf.write_text(_shipped_conf("labsat3.conf",
+                                      {"SignalSource.filename": base},
+                                      {"PVT.trop_model": "OFF",
+                                       "PVT.iono_model": "OFF"}))
+        _line("cli_labsat3", t0, step="write", generate_s=f"{gen_s:.3f}",
+              file_mb=f"{size / 1e6:.1f}", prns=sorted(sc.prns))
+        t0 = time.perf_counter()
+        stdout, stderr = _run_cli(conf, platform)
+    got = _summary(stdout)
+    _line("cli_labsat3", t0, run="labsat3", tracked=got["tracked"],
+          conditioning=f"conditioning {int(LABSAT_FS)} sps -> 2046000 sps"
+          in stderr, tracking_dispatches=got["dispatches"],
+          k2_launches=got["k2"], k1_launches=got["k1"])
+    missed = check and not set(sc.prns) <= set(got["tracked"])
+    _cli_checks("cli_labsat3", device, got, stderr,
+                ["tracked PRNs"] if missed else [])
+    return got["k2"]
+
+
+def phase_front_end_cal(device) -> None:
+    """tests/test_front_end_cal.py::test_full_cal_flow_from_capture on the
+    card: 5 visible satellites at 46 dB-Hz, the front end's oscillator
+    3 ppm off, 80 ms at 2 MSps; the all-PRN sweep (+-10 kHz, 250 Hz) on the
+    device, then the fit. Checks: the 5 detected, <= 8 detections, the
+    offset within 200 Hz and 0.15 ppm."""
+    from gnss_sdr_tpu_torch import constants
+    from gnss_sdr_tpu_torch.receiver.pvt import geodesy
+    from gnss_sdr_tpu_torch.utils import constellation, generator
+    from gnss_sdr_tpu_torch.utils.front_end_cal import run_front_end_cal
+
+    t0 = time.perf_counter()
+    ephs = constellation.almanac_constellation()
+    rcv = geodesy.geodetic_to_ecef(np.deg2rad(41.275), np.deg2rad(1.9876),
+                                   80.0)
+    t_gps, osc_hz = 354000.0, 3.0e-6 * 1.57542e9
+    vis = constellation.visible_sats(ephs, rcv, t_gps)[:5]
+    sats = [generator.SatParams(
+        prn=p, cn0_dbhz=46.0, code_delay_s=1.7e-4 * k,
+        doppler_hz=constellation.simulate_observation(
+            ephs[p], rcv, t_gps).doppler_hz + osc_hz)
+        for k, (p, _, _) in enumerate(vis)]
+    x = generator.generate(constants.SIGNALS["1C"], sats, FS, 0.08, seed=3)
+    t1 = time.perf_counter()
+    cal, rows = run_front_end_cal(x, FS, ephs, rcv, t_gps, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    det = sorted(r.prn for r in rows if r.detected)
+    _line("front_end_cal", t0, sweep_s=f"{time.perf_counter() - t1:.3f}",
+          detected=det, visible=sorted(p for p, _, _ in vis),
+          n_sats=cal.n_sats, offset_hz=f"{cal.clock_offset_hz:.1f}",
+          truth_hz=f"{osc_hz:.1f}", ppm=f"{cal.clock_offset_ppm:.4f}")
+    if not ({p for p, _, _ in vis} <= set(det) and len(det) <= 8
+            and abs(cal.clock_offset_hz - osc_hz) < 200.0
+            and abs(cal.clock_offset_ppm - 3.0) < 0.15):
+        raise SystemExit(f"front_end_cal: {cal}, detected {det}")
+
+
+def _two_bit_codes(v: np.ndarray) -> np.ndarray:
+    """Real values -> the 2-bit codes of io/native.py (0: +1, 1: +3,
+    2: -1, 3: -3), magnitude 3 beyond one rms."""
+    big = np.abs(v) > np.sqrt(np.mean(v * v))
+    return np.where(v >= 0, 0, 2).astype(np.uint8) + big.astype(np.uint8)
+
+
+def _read_blocks(src, n: int, sizes=(4096, 333, 10_000, 7)) -> np.ndarray:
+    out, k = [], 0
+    while True:
+        b = src.read(sizes[k % len(sizes)])
+        k += 1
+        if b.shape[-1] == 0:
+            break
+        out.append(b)
+    return np.concatenate(out, axis=-1)[..., :n]
+
+
+def phase_sources(device, rf_seconds: float = 2.8) -> int:
+    """One capture (0.1 s of a 4-satellite GPS L1 scenario at 2 MSps, seed
+    55) written as each capture format and read back through the port's
+    sources (config.ini.source_from_ini), in word-unaligned blocks, equal
+    to the numpy decoders of the raw file: SPIR int1 (channel 1), SPIR
+    GSS6450 (4-bit), a 4-element raw array, 2-bit packed complex, NSR
+    (2-bit real, native library); the capture as ishort datagrams through
+    UdpSignalSource and as u8 IQ through RtlTcpSignalSource, both over
+    127.0.0.1; then tests/test_rf_sources.py::test_uhd_conf_mock_playback_
+    end_to_end: a UHD conf with the mock driver playing 3 s of the
+    scenario (generated on the card) feeds the receiver (4 channels) for
+    ``rf_seconds``, after which every satellite must be tracked. Returns
+    that receiver's K2 launches."""
+    import socket
+    import threading
+
+    from gnss_sdr_tpu_torch.config import ini
+    from gnss_sdr_tpu_torch.io import native
+    from gnss_sdr_tpu_torch.io import sources as srcs
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+    from gnss_sdr_tpu_torch.utils import scenario
+
+    t0 = time.perf_counter()
+    sc = scenario.build_gps_l1_scenario(duration_s=3.0, n_sats=4,
+                                        cn0_dbhz=48.0, fs=FS)
+    full = sc.generate(seed=55, device=device)
+    x = full[: int(0.1 * FS)]
+    n = len(x)
+    i_ = np.rint(x.real * 2.5).clip(-8, 7).astype(np.int64)
+    q_ = np.rint(x.imag * 2.5).clip(-8, 7).astype(np.int64)
+    checked = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+
+        def source(impl, path, **keys):
+            conf = ini.InMemoryConfiguration()
+            for k, v in {"implementation": impl, "filename": path,
+                         "sampling_frequency": int(FS), **keys}.items():
+                conf.set_property(f"SignalSource.{k}", v)
+            return ini.source_from_ini(conf)
+
+        # SPIR int1: one int32 a sample, I sign in bit 0, Q sign in bit 1
+        words = ((x.real > 0).astype(np.int32)
+                 | ((x.imag > 0).astype(np.int32) << 1))
+        words.astype("<i4").tofile(tmp / "int1.dat")
+        got = _read_blocks(source("Spir_File_Signal_Source",
+                                  tmp / "int1.dat"), n)
+        checked["spir_int1"] = (np.array_equal(
+            got, srcs.decode_spir_int1(words, 1)) and np.array_equal(
+            np.sign(got.real), np.where(x.real > 0, 1, -1)))
+        # SPIR GSS6450 4-bit: 4 samples a word, I then Q, reversed order
+        w = np.zeros(n // 4, np.uint32)
+        for k in range(4):
+            j = slice(3 - k, n // 4 * 4, 4)
+            w |= (i_[j] & 15).astype(np.uint32) << (8 * k)
+            w |= (q_[j] & 15).astype(np.uint32) << (8 * k + 4)
+        w.astype("<u4").tofile(tmp / "gss.dat")
+        got = _read_blocks(source("Spir_GSS6450_File_Signal_Source",
+                                  tmp / "gss.dat", adc_bits=4), n)
+        checked["spir_gss6450"] = (np.array_equal(
+            got, srcs.decode_spir_gss6450(w.astype(np.int32), 4))
+            and np.array_equal(got, (i_ + 1j * q_).astype(np.complex64)))
+        # a 4-element array, element-interleaved gr_complex
+        rng = np.random.default_rng(9)
+        arr = np.stack([x + (rng.standard_normal(n) + 1j
+                             * rng.standard_normal(n)).astype(np.complex64)
+                        for _ in range(4)])
+        arr.T.reshape(-1).tofile(tmp / "array.dat")
+        got = _read_blocks(source("Raw_Array_Signal_Source",
+                                  tmp / "array.dat", RF_channels=4), n)
+        checked["raw_array"] = np.array_equal(got, arr)
+        # 2-bit packed complex (I, Q, I, Q per byte) and NSR (4 real a byte)
+        c = np.stack([_two_bit_codes(x.real), _two_bit_codes(x.imag)],
+                     1).reshape(-1, 4)
+        cpx = (c[:, 0] | c[:, 1] << 2 | c[:, 2] << 4 | c[:, 3] << 6
+               ).astype(np.uint8)
+        cpx.tofile(tmp / "cpx.bin")
+        got = _read_blocks(source("Two_Bit_Cpx_File_Signal_Source",
+                                  tmp / "cpx.bin"), n)
+        checked["two_bit_cpx"] = np.array_equal(
+            got, native.decode_2bit_cpx_numpy(cpx))
+        r = _two_bit_codes(x.real).reshape(-1, 4)
+        nsr = (r[:, 0] | r[:, 1] << 2 | r[:, 2] << 4 | r[:, 3] << 6
+               ).astype(np.uint8)
+        nsr.tofile(tmp / "nsr.bin")
+        got = _read_blocks(source("Nsr_File_Signal_Source",
+                                  tmp / "nsr.bin"), n)
+        checked["nsr"] = np.array_equal(got,
+                                        native.decode_2bit_real_numpy(nsr))
+        got = _read_blocks(source("Two_Bit_Packed_File_Signal_Source",
+                                  tmp / "cpx.bin", sample_type="iq"), n)
+        checked["two_bit_packed"] = np.array_equal(
+            got, native.decode_2bit_cpx_numpy(cpx))
+
+    # UDP: the capture as ishort datagrams
+    raw = np.empty(2 * n, np.int16)
+    raw[0::2] = np.rint(x.real * 300)
+    raw[1::2] = np.rint(x.imag * 300)
+    udp = srcs.UdpSignalSource(host="127.0.0.1", port=0, item_type="ishort",
+                               sampling_frequency=FS, timeout_s=2.0)
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    got = []
+    for part in np.array_split(raw, 100):
+        tx.sendto(part.tobytes(), ("127.0.0.1", udp.port))
+        got.append(udp.read(len(part) // 2))
+    tx.close()
+    udp.close()
+    checked["udp"] = np.array_equal(np.concatenate(got),
+                                    srcs.decode_samples(raw, "ishort"))
+    # rtl_tcp: the capture as u8 IQ from a local server
+    u8 = np.empty(2 * n, np.uint8)
+    u8[0::2] = np.rint(x.real * 30 + 127.4).clip(0, 255)
+    u8[1::2] = np.rint(x.imag * 30 + 127.4).clip(0, 255)
+    srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    cmds = []
+
+    def serve():
+        conn, _ = srv.accept()
+        conn.sendall(b"RTL0" + bytes(8))
+        buf = b""
+        while len(buf) < 15:
+            part = conn.recv(15 - len(buf))
+            if not part:
+                break
+            buf += part
+        cmds.extend(buf[i] for i in range(0, len(buf), 5))
+        conn.sendall(u8.tobytes())
+        conn.close()
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    conf = ini.InMemoryConfiguration()
+    for k, v in {"implementation": "RtlTcp_Signal_Source",
+                 "address": "127.0.0.1", "port": srv.getsockname()[1],
+                 "sampling_frequency": int(FS)}.items():
+        conf.set_property(f"SignalSource.{k}", v)
+    rtl = ini.source_from_ini(conf)
+    got = np.concatenate([rtl.read(m) for m in (777, 50_000, n - 50_777)])
+    th.join(timeout=10)
+    rtl.close()
+    srv.close()
+    f = (u8.astype(np.float32) - 127.4) / 128.0
+    checked["rtl_tcp"] = (sorted(cmds) == [1, 2, 8] and np.array_equal(
+        got, (f[0::2] + 1j * f[1::2]).astype(np.complex64)))
+    _line("sources", t0, samples=n, **checked)
+    if not all(checked.values()):
+        raise SystemExit(f"sources: {[k for k, v in checked.items() if not v]}"
+                         f" read back wrong")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = pathlib.Path(tmp) / "mock_capture.cfile"
+        full.astype(np.complex64).tofile(cap)
+        conf = ini.InMemoryConfiguration()
+        for k, v in {"implementation": "UHD_Signal_Source",
+                     "sampling_frequency": int(FS), "freq": 1_575_420_000,
+                     "gain": 50, "antenna": "TX/RX", "subdevice": "A:0",
+                     "driver": "mock", "mock_capture": cap}.items():
+            conf.set_property(f"SignalSource.{k}", v)
+        src = ini.source_from_ini(conf)
+    rx = Receiver(ReceiverConfig(signal="1C", fs=FS, n_channels=4,
+                                 prns=tuple(sc.prns), chunk_ms=100),
+                  device=device)
+    tk.launches = 0
+    rx.run_source(src, max_chunks=int(round(rf_seconds * 10)))
+    src.close()
+    k2 = tk.launches
+    tracked = sorted(rx.tracked_prns())
+    _line("sources", t0, run="uhd_mock_playback", seconds_of_capture=(
+        rf_seconds), delivered=src.driver.samples_delivered, tracked=tracked,
+        tracking_dispatches=rx.tracking_dispatches, k2_launches=k2)
+    if tracked != sorted(sc.prns) or (device.type == "cuda" and not
+                                      k2 == rx.tracking_dispatches > 0):
+        raise SystemExit(f"the mock UHD receiver tracked {tracked}, expected "
+                         f"{sorted(sc.prns)}, K2 launches {k2}")
+    return k2
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
@@ -2758,6 +3320,13 @@ def main(argv=None) -> int:
             phase_signal(name, device, 3.0, check=False)
         phase_cli_rtk(device, phase_rtk(device, 4.0, check=False),
                       check=False)
+        phase_conditioning(device)
+        phase_cli_notch(device, 1.0, check=False)
+        phase_cli_supl(device, phase_main(device, 3.0, check_fix=False), 3.0,
+                       check=False)
+        phase_cli_labsat3(device, 0.5, check=False)
+        phase_front_end_cal(device)
+        phase_sources(device)
         return 0
 
     t0 = time.perf_counter()
@@ -2802,6 +3371,8 @@ def main(argv=None) -> int:
     phase_stream(device, x, main_run["prns"], 12.0)
     phase_profile(rx, x)
     cli_k2 = phase_cli(device, main_run, 2.0)
+    # SUPL assistance on the main capture's first SUPL_DUR s
+    cli_supl_k2 = phase_cli_supl(device, main_run)
     del main_run, rx, x
 
     t0 = time.perf_counter()
@@ -2858,6 +3429,13 @@ def main(argv=None) -> int:
     cli_rtk_k2 = phase_cli_rtk(device, rtk, check=True)
     rtk_k1, rtk_k2 = rtk["k1_launches"], rtk["k2_launches"]
     del rtk
+    # input conditioning, the notch and LabSat confs, front-end
+    # calibration and the remaining signal sources
+    phase_conditioning(device)
+    cli_notch_k2 = phase_cli_notch(device)
+    cli_labsat3_k2 = phase_cli_labsat3(device)
+    phase_front_end_cal(device)
+    sources_k2 = phase_sources(device)
 
     a, k2c8 = timing["a_main_path"], timing_k2["k2_c8"]
     kf8 = timing_kf["k2_kf_c8"]
@@ -2930,6 +3508,10 @@ def main(argv=None) -> int:
         "sbas_launches": sbas["k2_launches"],
         "rtk_launches": rtk_k2,
         "cli_rtk_launches": cli_rtk_k2,
+        "cli_notch_launches": cli_notch_k2,
+        "cli_supl_launches": cli_supl_k2,
+        "cli_labsat3_launches": cli_labsat3_k2,
+        "sources_uhd_mock_launches": sources_k2,
         "library_ms": None,
     }, {
         "name": "tracking_chunk_kf",

@@ -6,11 +6,14 @@ assistance file, the output products, the telecommand server, the keyboard
 listener, the summary lines and exit code 42 on a ``reset`` telecommand.
 
 The receiver runs on ``cuda:0`` unless ``--platform cpu`` is given; without
-a card the CLI fails (no fallback to the CPU). The RTK rover (TCP or NTRIP
-base) and the PPP modes run on the host beside it. Not ported yet, each
-raising ``NotImplementedError`` naming its key or argument: multi-source
-confs, ``--devices`` > 1, SUPL assistance (``GNSS-SDR.SUPL_*``), the notch
-input filter and the LabSat source.
+a card the CLI fails (no fallback to the CPU). The input filter (notch,
+pulse blanking, frequency translation, beamformer) runs on the receiver's
+device before the rate conditioner; SUPL A-GNSS assistance
+(``GNSS-SDR.SUPL_*``) is fetched from the configured server before the
+stream starts; the RTK rover (TCP or NTRIP base) and the PPP modes run on
+the host beside the receiver. Not ported yet, each raising
+``NotImplementedError`` naming its key or argument: multi-source confs and
+``--devices`` > 1.
 """
 
 from __future__ import annotations
@@ -73,12 +76,6 @@ def _start_keyboard_listener(rx) -> None:
     threading.Thread(target=listen, daemon=True).start()
 
 
-def _supl_enabled(conf) -> list[str]:
-    """The GNSS-SDR.SUPL_*_enabled keys that are on."""
-    return [k for k in conf.keys_with_prefix("GNSS-SDR.SUPL_")
-            if k.endswith("_enabled") and conf.property(k, False)]
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=args.log_level,
@@ -119,17 +116,23 @@ def main(argv=None) -> int:
     source = ini.source_from_ini(conf)
     if abs(source.fs - rcfg.fs) > 1.0:
         log.info("conditioning %.0f sps -> %.0f sps", source.fs, rcfg.fs)
-    ini.input_filter_from_ini(conf)      # raises for unported filters
+    input_filter = ini.input_filter_from_ini(conf, device=device)
     rx = Receiver(rcfg, device=device)
     # warm/hot-start state (ephemerides + almanac + last position/time),
     # reloaded at start and refreshed at exit
     assist = str(conf.property("GNSS-SDR.assistance_file", "")).strip()
     if assist:
         rx.restore(assist)
-    supl = _supl_enabled(conf)
-    if supl:
-        raise NotImplementedError(
-            f"{supl[0]}=true: SUPL assistance is not ported yet")
+    # SUPL A-GNSS: ephemeris / almanac / iono / UTC / reference position
+    # and time and acquisition hints from an SLP before streaming
+    # (reference ControlThread::assist_GNSS; GNSS-SDR.SUPL_* keys)
+    from gnss_sdr_tpu_torch.io.supl import fetch_supl_assistance
+    supl_assist = fetch_supl_assistance(conf)
+    if supl_assist is not None:
+        rx.apply_assistance(supl_assist)
+        log.info("SUPL: %d ephemerides, %d almanacs, %d acquisition hints "
+                 "applied", len(supl_assist.ephemerides),
+                 len(supl_assist.almanacs), len(supl_assist.acq))
     from gnss_sdr_tpu_torch.receiver.outputs import attach_outputs
     outputs = attach_outputs(rx, conf)
     # TCP telecommand interface (GNSS-SDR.telecommand_enabled / _tcp_port)
@@ -143,7 +146,8 @@ def main(argv=None) -> int:
         log.info("telecommand server on tcp port %d", telecmd.port)
     _start_keyboard_listener(rx)
     try:
-        rx.run_file_source(source, max_chunks=args.max_chunks)
+        rx.run_file_source(source, max_chunks=args.max_chunks,
+                           input_filter=input_filter)
     finally:
         if assist:
             rx.checkpoint(assist)
@@ -159,7 +163,15 @@ def main(argv=None) -> int:
           f"{tracking_kernel.launches} multicorrelator_launches="
           f"{correlator.launches} tracking_kernel_kf_launches="
           f"{tracking_kernel.kf_launches}")
+    if input_filter is not None:
+        print(f"input filter: {input_filter.name} {input_filter.calls} "
+              f"blocks, {input_filter.seconds:.3f} s on the host")
+    if supl_assist is not None:
+        print(f"supl: {len(supl_assist.ephemerides)} ephemerides, "
+              f"{len(supl_assist.almanacs)} almanacs, "
+              f"{len(supl_assist.acq)} acquisition hints")
     if n:
+        print(f"first fix: tow={rx.fixes[0].tow_s:.3f} s")
         f = rx.fixes[-1]
         print(f"last fix: lat={f.lat_rad*57.29577951308232:.6f} "
               f"lon={f.lon_rad*57.29577951308232:.6f} h={f.height_m:.1f} m "

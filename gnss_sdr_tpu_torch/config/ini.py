@@ -11,7 +11,7 @@ this receiver directly for A/B runs. Every conf parses to the same
 and the reference's ``PVT.trop_model`` / ``PVT.iono_model`` set to ``OFF``
 turn the solver's atmosphere corrections off (the JAX binding reads
 neither key; no conf of the repo sets them).
-Sources, input filters and multi-source setups the port lacks raise
+Multi-source setups and RF front-ends other than the mock driver raise
 ``NotImplementedError`` naming the key.
 
 Dialect: ``Role.key=value`` lines; ``;`` and ``#`` comments; an optional
@@ -235,27 +235,150 @@ def receiver_config_from_ini(conf: Configuration):
     return _dc.replace(cfg, **name_overrides) if name_overrides else cfg
 
 
-def input_filter_from_ini(conf: Configuration, role: str = "InputFilter"):
-    """The InputFilter stage of the signal conditioner: None for
-    Pass_Through / Fir_Filter (plain band-limiting is the decimating
-    conditioner's, as in the JAX package); every other filter (notch, pulse
-    blanking, frequency translation, beamformer) is not ported yet."""
+class InputFilter:
+    """One InputFilter stage: ``f(block) -> block`` at the source rate. The
+    host block (complex64 ``[T]``, or ``[N, T]`` for the beamformer) goes to
+    ``device``, ``op`` runs there, and the result comes back as complex64
+    ``[T]`` for the rate conditioner. ``seconds`` sums the host time spent
+    in the stage (upload, the op and the download) over ``calls`` blocks."""
+
+    def __init__(self, name: str, op, device):
+        self.name = name
+        self.op = op
+        self.device = device
+        self.seconds = 0.0
+        self.calls = 0
+
+    def __call__(self, x):
+        import time
+
+        import numpy as np
+        import torch
+
+        from gnss_sdr_tpu_torch.ops import iq
+        t0 = time.perf_counter()
+        x2 = torch.from_numpy(iq.split(np.ascontiguousarray(x)))
+        y = self.op(x2.to(self.device)).cpu().numpy()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return iq.combine(y)
+
+
+def input_filter_from_ini(conf: Configuration, role: str = "InputFilter",
+                          device=None):
+    """Build the InputFilter stage of the signal conditioner from config.
+
+    Reference analog: the config-selectable input-filter adapters
+    (``src/algorithms/input_filter/adapters/``): Pulse_Blanking_Filter,
+    Notch_Filter / Notch_Filter_Lite, Freq_Xlating_Fir_Filter and
+    Beamformer_Filter, with the JAX package's keys and defaults
+    (ini.py:225-292). Returns an :class:`InputFilter` applied at the SOURCE
+    rate before resampling (DataTypeAdapter -> InputFilter -> Resampler),
+    whose arithmetic runs on ``device`` (``cuda:0`` unless given), or None
+    for Pass_Through / Fir_Filter (plain band-limiting is the decimating
+    conditioner's). For Beamformer_Filter the stage maps an
+    [N_elements, T] array block to a single [T] stream.
+    """
+    import numpy as np
+    import torch
+
     impl = conf.property(f"{role}.implementation", "Pass_Through")
     if impl in ("Pass_Through", "", "Fir_Filter"):
         return None
-    raise NotImplementedError(
-        f"{role}.implementation={impl}: input filters are not ported yet")
+    if impl not in ("Pulse_Blanking_Filter", "Notch_Filter",
+                    "Notch_Filter_Lite", "Freq_Xlating_Fir_Filter",
+                    "Beamformer_Filter"):
+        raise NotImplementedError(f"input filter {impl} not supported")
+    from gnss_sdr_tpu_torch.ops import fir, interference
+    from gnss_sdr_tpu_torch.receiver.receiver import resolve_device
+
+    if impl == "Freq_Xlating_Fir_Filter":
+        f_if = float(conf.property(f"{role}.IF", 0.0))
+        if f_if == 0.0:
+            return None
+    dev = resolve_device(device)
+    if impl == "Pulse_Blanking_Filter":
+        thr = float(conf.property(f"{role}.threshold", 10.0))
+        window = int(conf.property(f"{role}.segments_est",
+                                   conf.property(f"{role}.length", 64)))
+        return InputFilter(impl, lambda x2: interference.pulse_blanking(
+            x2, threshold=thr, window=window), dev)
+    if impl in ("Notch_Filter", "Notch_Filter_Lite"):
+        thr_db = float(conf.property(f"{role}.threshold_db", 12.0))
+        return InputFilter(impl, lambda x2: interference.notch_excision(
+            x2, threshold_db=thr_db), dev)
+    if impl == "Freq_Xlating_Fir_Filter":
+        fs = float(conf.property(f"{role}.sampling_frequency",
+                                 conf.property("SignalSource.sampling_frequency",
+                                               4_000_000)))
+        pos = {"n0": 0}           # absolute sample index: phase continuity
+                                  # across successive blocks
+
+        def _xlate(x2):
+            out = fir.freq_translate(x2, f_if, fs, n0=pos["n0"])
+            pos["n0"] += out.shape[0]
+            return out
+        return InputFilter(impl, _xlate, dev)
+    from gnss_sdr_tpu_torch.ops import iq
+    from gnss_sdr_tpu_torch.ops.beamformer import beamform, ula_steering_weights
+    n_el = int(conf.property(f"{role}.n_elements",
+                             conf.property("SignalSource.RF_channels", 4)))
+    theta = np.deg2rad(float(conf.property(f"{role}.theta_deg", 0.0)))
+    spacing = float(conf.property(f"{role}.spacing_wavelengths", 0.5))
+    w2 = torch.from_numpy(iq.split(ula_steering_weights(n_el, theta,
+                                                        spacing))).to(dev)
+    return InputFilter(impl, lambda x2: beamform(x2, w2), dev)
 
 
 def source_from_ini(conf: Configuration, role: str = "SignalSource"):
-    """Build the signal source from config: the file source of every item
-    type the port decodes; every other ``implementation`` (native 2-bit
-    formats, SPIR, LabSat, UDP, rtl_tcp, RF front-ends, antenna arrays)
-    raises ``NotImplementedError`` naming the key and its value."""
+    """Build the signal source from config: every implementation the JAX
+    package builds (ini.py:296-392). Live RF front-ends stream through
+    ``io/rf_driver.py``; only its mock driver is ported, and another driver
+    raises ``NotImplementedError`` naming the key."""
     from gnss_sdr_tpu_torch.io import sources
 
     impl = conf.property(f"{role}.implementation", "File_Signal_Source")
     fs = float(conf.property(f"{role}.sampling_frequency", 4_000_000))
+    if impl == "Raw_Array_Signal_Source":
+        # N-element antenna-array file capture (reference raw_array via
+        # Array_Signal_Conditioner + Beamformer_Filter)
+        return sources.ArrayFileSignalSource(
+            conf.property(f"{role}.filename", ""),
+            n_elements=int(conf.property(f"{role}.RF_channels", 4)),
+            item_type=conf.property(f"{role}.item_type", "gr_complex"),
+            sampling_frequency=fs,
+            samples=conf.property(f"{role}.samples", 0))
+    if impl in ("Nsr_File_Signal_Source", "Two_Bit_Packed_File_Signal_Source",
+                "Two_Bit_Cpx_File_Signal_Source"):
+        # 2-bit packed capture formats (reference unpack_byte_2bit_samples /
+        # unpack_2bit_samples): the native decoders' "2bit_real" (NSR: real
+        # samples at IF) / "2bit_cpx" item kinds
+        from gnss_sdr_tpu_torch.io import native
+        kind = ("2bit_real" if impl != "Two_Bit_Cpx_File_Signal_Source"
+                else "2bit_cpx")
+        if impl == "Two_Bit_Packed_File_Signal_Source":
+            st = conf.property(f"{role}.sample_type", "real")
+            kind = "2bit_real" if st == "real" else "2bit_cpx"
+        return native.NativeFileSource(
+            conf.property(f"{role}.filename", ""),
+            item_type=kind, sampling_frequency=fs)
+    if impl == "Spir_File_Signal_Source":
+        return sources.SpirSignalSource(
+            conf.property(f"{role}.filename", ""), fmt="int1",
+            sampling_frequency=fs,
+            channel=int(conf.property(f"{role}.sel_ch", 1)),
+            samples=conf.property(f"{role}.samples", 0))
+    if impl == "Spir_GSS6450_File_Signal_Source":
+        return sources.SpirSignalSource(
+            conf.property(f"{role}.filename", ""), fmt="gss6450",
+            sampling_frequency=fs,
+            adc_bits=int(conf.property(f"{role}.adc_bits", 4)),
+            samples=conf.property(f"{role}.samples", 0))
+    if impl == "Labsat_Signal_Source":
+        return sources.LabsatSignalSource(
+            conf.property(f"{role}.filename", ""),
+            channel=int(conf.property(f"{role}.selected_channel", 1)),
+            sampling_frequency=fs)
     if impl == "File_Signal_Source":
         return sources.FileSignalSource(
             conf.property(f"{role}.filename", ""),
@@ -264,8 +387,50 @@ def source_from_ini(conf: Configuration, role: str = "SignalSource"):
             samples=conf.property(f"{role}.samples", 0),
             repeat=conf.property(f"{role}.repeat", False),
         )
-    raise NotImplementedError(
-        f"{role}.implementation={impl}: this signal source is not ported yet")
+    if impl == "Custom_UDP_Signal_Source":
+        return sources.UdpSignalSource(
+            host=conf.property(f"{role}.origin_address", "0.0.0.0"),
+            port=int(conf.property(f"{role}.port", 1234)),
+            item_type=conf.property(f"{role}.item_type", "ishort"),
+            sampling_frequency=fs)
+    if impl == "RtlTcp_Signal_Source":
+        return sources.RtlTcpSignalSource(
+            host=conf.property(f"{role}.address", "127.0.0.1"),
+            port=int(conf.property(f"{role}.port", 1234)),
+            frequency_hz=float(conf.property(f"{role}.freq",
+                                             1_575_420_000)),
+            sampling_frequency=fs,
+            agc=conf.property(f"{role}.AGC_enabled", True))
+    from gnss_sdr_tpu_torch.config import registry
+    if impl in registry.HARDWARE_SOURCES:
+        # live RF front-ends stream through the driver abstraction
+        # (io/rf_driver.py; reference uhd_signal_source.cc:60-200 and
+        # siblings). Every adapter's conf keys map onto one RfConfig.
+        from gnss_sdr_tpu_torch.io import rf_driver
+        drv_kind = conf.property(f"{role}.driver",
+                                 registry.HARDWARE_DRIVER_DEFAULT[impl])
+        if drv_kind != "mock":
+            raise NotImplementedError(
+                f"{role}.implementation={impl} (driver {drv_kind}): only "
+                f"the mock RF driver is ported")
+        cfg = rf_driver.RfConfig(
+            sampling_frequency=fs,
+            center_freq_hz=float(conf.property(f"{role}.freq",
+                                               1_575_420_000)),
+            gain_db=float(conf.property(f"{role}.gain", 40.0)),
+            rf_gain_db=float(conf.property(f"{role}.rf_gain", 40.0)),
+            if_gain_db=float(conf.property(f"{role}.if_gain", 40.0)),
+            agc=bool(conf.property(f"{role}.AGC_enabled", False)),
+            antenna=conf.property(f"{role}.antenna", ""),
+            subdevice=conf.property(f"{role}.subdevice", ""),
+            bandwidth_hz=float(conf.property(f"{role}.bandwidth", 0.0)),
+            device_args=conf.property(
+                f"{role}.device_address",
+                conf.property(f"{role}.osmosdr_args", "")))
+        playback = conf.property(f"{role}.mock_capture", "") or None
+        return rf_driver.RfSignalSource(
+            rf_driver.make_driver("mock", playback=playback), cfg)
+    raise NotImplementedError(f"signal source {impl} not supported yet")
 
 
 def multisource_from_ini(conf: Configuration):

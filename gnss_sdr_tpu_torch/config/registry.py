@@ -86,8 +86,8 @@ SOURCES = {"File_Signal_Source", "Custom_UDP_Signal_Source",
            "Two_Bit_Packed_File_Signal_Source",
            "Two_Bit_Cpx_File_Signal_Source",
            "Multichannel_File_Signal_Source"}
-# hardware front-ends (the JAX package streams them through its
-# io.rf_driver abstraction; not ported)
+# hardware front-ends stream through the io.rf_driver abstraction; the port
+# has its mock driver only
 HARDWARE_SOURCES = {"UHD_Signal_Source", "Osmosdr_Signal_Source",
                     "Plutosdr_Signal_Source", "Fmcomms2_Signal_Source",
                     "Ad9361_Fpga_Signal_Source", "Flexiband_Signal_Source",
@@ -183,11 +183,11 @@ def validate_conf(conf, plan: list) -> dict:
                                 HARDWARE_DRIVER_DEFAULT[src])
             if drv != "mock":
                 # the JAX package raises UnknownBlockError here when the
-                # driver's vendor library is missing; the port has no
-                # front-end drivers at all
+                # driver's vendor library is missing; the port has the mock
+                # driver only
                 raise NotImplementedError(
-                    f"SignalSource.implementation={src} (driver {drv}): RF "
-                    f"front-ends are not ported yet")
+                    f"SignalSource.implementation={src} (driver {drv}): only "
+                    f"the mock RF driver is ported")
         else:
             _check("SignalSource", src, SOURCES)
     flt = conf.property("InputFilter.implementation", "")
@@ -221,11 +221,10 @@ def validate_conf(conf, plan: list) -> dict:
 
 
 # what the port has: every other name the tables accept raises in
-# check_ported (the GPS L1 C/A, GPS L2C, GPS L5, Galileo E1-B, Galileo E5a
-# and BeiDou B1I receivers with PCPS acquisition and E5a's noncoherent I/Q
-# CAF variant,
-# their file / array sources and the rate conditioner; observables and PVT
-# names all select the one engine)
+# check_ported (every signal's receiver with PCPS acquisition and E5a's
+# noncoherent I/Q CAF variant, every single-stream source and input filter
+# and the rate conditioner; observables and PVT names all select the one
+# engine)
 PORTED_ACQUISITIONS = {n for n, (sig, ov) in ACQUISITIONS.items()
                        if sig == "1C"
                        or (sig in ("1B", "2S", "L5", "5X", "B1", "B3", "1G",
@@ -254,8 +253,12 @@ PORTED_TELEMETRIES = {"GPS_L1_CA_Telemetry_Decoder",
                       "BEIDOU_B1I_Telemetry_Decoder",
                       "BEIDOU_B3I_Telemetry_Decoder",
                       "SBAS_L1_Telemetry_Decoder"}
-PORTED_SOURCES = {"File_Signal_Source"}
-PORTED_INPUT_FILTERS = {"Pass_Through", "Fir_Filter"}
+# every source but the multi-file one (the multi-source receiver is not
+# ported); a hardware front-end passes here only with driver=mock, the
+# other drivers being refused in validate_conf
+PORTED_SOURCES = (SOURCES - {"Multichannel_File_Signal_Source"}) \
+    | HARDWARE_SOURCES
+PORTED_INPUT_FILTERS = set(INPUT_FILTERS)
 
 
 def check_ported(conf, plan: list) -> None:

@@ -1,7 +1,8 @@
 """FIR filtering / resampling ops for the signal conditioner.
 
 Port of gnss_sdr_tpu/ops/fir.py (reference analogs: the ``Fir_Filter``
-adapter and ``Mmse_Resampler``). Filter design is host-side numpy
+adapter, ``Mmse_Resampler``, ``Direct_Resampler`` and the frequency
+translation of ``Freq_Xlating_Fir_Filter``). Filter design is host-side numpy
 (windowed sinc); application is plain PyTorch on the receiver's device,
 streaming block by block with an overlap (state) tail so block boundaries
 are seamless: the FIR as one ``conv1d`` over the I and Q lanes, the
@@ -76,6 +77,32 @@ class StreamingFir:
         y, self._tail = fir_filter_chunk(_upload(x, self.device), self.taps,
                                          self._tail, self.decim)
         return y.cpu().numpy()                # [M, 2] float32 split-IQ
+
+
+def direct_resample(x: torch.Tensor, factor_num: int, factor_den: int,
+                    n_out: int) -> torch.Tensor:
+    """Nearest-sample resampler (reference Direct_Resampler): picks
+    x[floor(k * den / num)] for k in [0, n_out), the indices in int64."""
+    k = torch.arange(n_out, dtype=torch.int64, device=x.device)
+    return x[torch.div(k * factor_den, factor_num, rounding_mode="floor")]
+
+
+def freq_translate(x: torch.Tensor, f_shift_hz: float, fs: float,
+                   n0: int = 0) -> torch.Tensor:
+    """Frequency-translate a block (IF -> baseband) by exp(-j 2 pi f n / fs)
+    with n = n0 + k, so successive blocks stay phase-continuous. The phase
+    is taken in cycles in float64 and reduced modulo one cycle before the
+    float32 ``exp``: exact at any n0 (the JAX package forms -2 pi f n / fs
+    in float32 and loses the carrier once n reaches ~10^7). Split-IQ in and
+    out."""
+    z = iq.as_complex(x)
+    r = f_shift_hz / fs
+    base = (int(n0) * r) % 1.0
+    cyc = base + torch.arange(z.shape[0], dtype=torch.float64,
+                              device=z.device) * r
+    cyc = cyc - torch.floor(cyc)
+    ph = (cyc * (-2.0 * np.pi)).to(torch.float32)
+    return iq.as_iq2(z * torch.polar(torch.ones_like(ph), ph))
 
 
 # ---------------------------------------------------------------------------

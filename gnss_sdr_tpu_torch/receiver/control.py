@@ -235,7 +235,7 @@ class Assistance:
     tow_s: float | None = None
     # SUPL acquisition assistance: (system, prn) -> Doppler/code-phase
     # hints. Short-lived — not persisted to JSON (reference keeps it in the
-    # in-memory global_gps_acq_assist_map); SUPL is not ported yet
+    # in-memory global_gps_acq_assist_map), filled by io/supl.py
     acq: dict = dataclasses.field(default_factory=dict)
 
 

@@ -1164,8 +1164,8 @@ class Receiver:
         self.apply_assistance(control.load_assistance(path))
 
     def apply_assistance(self, a) -> None:
-        """Merge an Assistance record (JSON checkpoint) into the warm-start
-        state."""
+        """Merge an Assistance record (JSON checkpoint, rinex2assist or a
+        SUPL A-GNSS fetch) into the warm-start state."""
         self.ephemerides.update(a.ephemerides)
         self.almanacs.update(a.almanacs)
         self.acq_assist.update(getattr(a, "acq", {}) or {})
@@ -1175,19 +1175,38 @@ class Receiver:
             self.assist_pos = a.position_ecef
             self.assist_tow = a.tow_s
 
-    def run_source(self, source, max_chunks: int | None = None) -> None:
+    def step_source(self, source, cond=None, block_len: int | None = None,
+                    input_filter=None) -> bool:
+        """Pull ONE block from ``source``, filter and condition it, and
+        process it; False once the source is exhausted (JAX package
+        receiver.py:1573-1588, the pull-based twin of
+        :meth:`run_file_source`)."""
+        block = source.read(block_len if block_len is not None
+                            else self.chunk_len)
+        if input_filter is not None and len(block):
+            block = input_filter(block)
+        if len(block) < (2 if cond is not None else 1):
+            return False
+        self.process(cond(block) if cond is not None else block)
+        return True
+
+    def run_source(self, source, max_chunks: int | None = None,
+                   input_filter=None) -> None:
         """Stream ``source`` (an object with ``read(n)`` returning complex64
-        samples at the internal rate) through the receiver to its end, a
+        samples at the internal rate) through ``input_filter`` (None, or an
+        ``ini.input_filter_from_ini`` stage) and the receiver to its end, a
         stop or a reset request."""
-        self._run_pipelined(source, None, self.chunk_len, max_chunks)
+        self._run_pipelined(source, None, self.chunk_len, max_chunks,
+                            input_filter)
 
     def _run_pipelined(self, source, cond, block_len: int,
-                       max_chunks: int | None) -> None:
-        """Double-buffered chunk loop: a producer thread reads and
+                       max_chunks: int | None, input_filter=None) -> None:
+        """Double-buffered chunk loop: a producer thread reads, filters and
         rate-conditions block k+1 while the receiver processes block k (the
         JAX package's default loop, receiver.py:1609-1656); it stops at the
         source's end, after ``max_chunks`` blocks, or on a stop or reset
-        request."""
+        request. The filter sees the source-rate blocks, on the same block
+        boundaries as the conditioner."""
         import queue as queue_mod
         import threading
 
@@ -1200,6 +1219,8 @@ class Receiver:
                 while ((max_chunks is None or n < max_chunks)
                        and not stop.is_set()):
                     block = source.read(block_len)
+                    if input_filter is not None and len(block):
+                        block = input_filter(block)
                     if len(block) < (2 if cond is not None else 1):
                         break
                     q.put(cond(block) if cond is not None else block)
@@ -1226,14 +1247,18 @@ class Receiver:
                 pass
             t.join(timeout=5.0)
 
-    def run_file_source(self, source, max_chunks: int | None = None) -> None:
+    def run_file_source(self, source, max_chunks: int | None = None,
+                        input_filter=None) -> None:
         """Run from a source whose rate may differ from the internal rate:
-        a decimating FIR (integer ratios) or a polyphase fractional
-        resampler bridges the rates on the receiver's device (reference
-        SignalConditioner -> Resampler)."""
+        ``input_filter`` (notch, pulse blanking, frequency translation,
+        beamformer; see ``ini.input_filter_from_ini``) at the source rate,
+        then a decimating FIR (integer ratios) or a polyphase fractional
+        resampler bridging the rates on the receiver's device (reference
+        SignalConditioner = DataTypeAdapter -> InputFilter -> Resampler)."""
         cond, block_len = make_rate_conditioner(source.fs, self.cfg.fs,
                                                 self.chunk_len, self.device)
-        self._run_pipelined(source, cond, block_len, max_chunks)
+        self._run_pipelined(source, cond, block_len, max_chunks,
+                            input_filter)
 
     # ------------------------------------------------------------- queries
     def tracked_prns(self) -> list[int]:

@@ -7,10 +7,14 @@ to the test's temporary directory) through ``--max_chunks 3`` and exits 0,
 tracking every satellite of the capture and none other, with its output
 files written; without ``--platform cpu`` and without a card it exits
 non-zero, never falling back to the CPU. A ``reset`` telecommand ends the
-run with exit code 42; unported features (multi-source, SUPL, more devices)
-raise ``NotImplementedError`` naming their key or argument.
+run with exit code 42; SUPL assistance comes from a QA server on 127.0.0.1,
+never from the conf's default server; the notch filter runs before the
+receiver on a jammed capture; unported features (multi-source, the TCP
+connector tracking, more devices, RF drivers but the mock) raise
+``NotImplementedError`` naming their key or argument.
 """
 
+import pathlib
 import socket
 import threading
 import time
@@ -26,6 +30,7 @@ from gnss_sdr_tpu_torch.utils import generator
 
 torch.set_num_threads(1)   # one thread per xdist worker
 
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 FS = 2.0e6
 SATS = [(5, 1200.0, 1.7e-4), (12, -2600.0, 5.2e-4), (23, 300.0, 8.9e-4)]
 
@@ -125,13 +130,85 @@ def test_cli_reset_returns_42(tmp_path):
 
 @pytest.mark.parametrize("extra,argv,named", [
     ("Receiver.sources_count=2\n", [], "Receiver.sources_count"),
-    ("GNSS-SDR.SUPL_gps_enabled=true\n", [], "GNSS-SDR.SUPL_gps_enabled"),
+    ("Tracking_1C.implementation=GPS_L1_CA_TCP_CONNECTOR_Tracking\n", [],
+     "Tracking_1C.implementation=GPS_L1_CA_TCP_CONNECTOR"),
     ("", ["--devices", "2"], "n_mesh_devices"),
-    ("InputFilter.implementation=Notch_Filter\n", [],
-     "InputFilter.implementation=Notch_Filter")])
+    ("SignalSource.implementation=UHD_Signal_Source\n", [], "driver uhd")])
 def test_cli_refuses_unported(tmp_path, extra, argv, named):
     path = tmp_path / "empty.ibyte"
     path.write_bytes(b"")
     conf = _conf(tmp_path, extra, capture=path)
     with pytest.raises(NotImplementedError, match=named):
         tcli.main(["-c", conf, "--platform", "cpu"] + argv)
+
+
+def test_cli_supl_from_a_local_server(tmp_path, capsys):
+    """GNSS-SDR.SUPL_* keys: the CLI fetches the assistance from the port's
+    QA SLP on 127.0.0.1 (three sessions: ephemerides, almanac and
+    reference location / time, acquisition hints) and applies it before
+    streaming."""
+    from gnss_sdr_tpu_torch.io.supl import SuplServer
+    from gnss_sdr_tpu_torch.utils import constellation
+
+    ephs = constellation.almanac_constellation()
+    srv = SuplServer(ephemerides=[ephs[p] for p, _, _ in SATS],
+                     ref_llh=(41.275, 1.9876, 80.0), gps_week=2240,
+                     gps_tow=345600.0, n_batches=2, n_sessions=3,
+                     acq_assist=[(p, d, 0.0) for p, d, _ in SATS])
+    srv.start()
+    conf = _conf(tmp_path, "GNSS-SDR.SUPL_gps_enabled=true\n"
+                           "GNSS-SDR.SUPL_gps_ephemeris_server=127.0.0.1\n"
+                           f"GNSS-SDR.SUPL_gps_ephemeris_port={srv.port}\n",
+                 capture=_capture(tmp_path))
+    assert tcli.main(["-c", conf, "--platform", "cpu",
+                      "--max_chunks", "2"]) == 0
+    srv.join(timeout=30)
+    assert not srv.is_alive() and srv.error is None
+    assert srv.n_acks >= 1 and srv.got_posinit is not None
+    out = capsys.readouterr().out
+    assert "supl: 3 ephemerides, 0 almanacs, 3 acquisition hints" in out
+    assert f"tracked PRNs: {sorted(p for p, _, _ in SATS)}" in out
+
+
+def test_cli_notch_filter_on_the_cpu(tmp_path, capsys):
+    """InputFilter.implementation=Notch_Filter: the CLI runs the notch on
+    the receiver's device before the receiver, which tracks every
+    satellite of a capture with a CW jammer 30x the noise amplitude."""
+    sats = [generator.SatParams(prn=p, cn0_dbhz=50.0, doppler_hz=d,
+                                code_delay_s=cd) for p, d, cd in SATS]
+    x = generator.generate(constants.GPS_L1_CA, sats, FS, 0.3, seed=9)
+    x = x + 30.0 * np.exp(2j * np.pi * 0.31e6 * np.arange(len(x)) / FS)
+    raw = np.empty(2 * len(x), np.int16)
+    raw[0::2], raw[1::2] = np.round(x.real * 200), np.round(x.imag * 200)
+    path = tmp_path / "jammed.ishort"
+    raw.tofile(path)
+    conf = _conf(tmp_path, "InputFilter.implementation=Notch_Filter\n"
+                           "InputFilter.threshold_db=12\n"
+                           "SignalSource.item_type=ishort\n", capture=path)
+    assert tcli.main(["-c", conf, "--platform", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "input filter: Notch_Filter 3 blocks" in out
+    assert f"tracked PRNs: {sorted(p for p, _, _ in SATS)}" in out
+
+
+def test_cli_labsat3_conf_on_the_cpu(tmp_path, capsys):
+    """conf/labsat3.conf as shipped, its capture a LabSat 3 file (4-bit
+    words from the port's encoder) at 16.368 MSps: the CLI decodes it with
+    the native library and decimates it 8:1 to 2.046 MSps on the
+    receiver's device."""
+    from gnss_sdr_tpu_torch.io import sources
+
+    fs = 16.368e6
+    sats = [generator.SatParams(prn=p, cn0_dbhz=50.0, doppler_hz=d,
+                                code_delay_s=cd) for p, d, cd in SATS]
+    x = generator.generate(constants.GPS_L1_CA, sats, fs, 0.25, seed=4)
+    base = tmp_path / "capture"
+    with open(f"{base}_0000.LS3", "wb") as f:
+        f.write(sources.labsat_header(4))
+        sources.encode_labsat_words(x[: len(x) // 4 * 4], 4).astype(
+            "<u2").tofile(f)
+    conf = ROOT / "conf" / "labsat3.conf"
+    assert tcli.main(["-c", str(conf), "-s", str(base),
+                      "--platform", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert f"tracked PRNs: {sorted(p for p, _, _ in SATS)}" in out

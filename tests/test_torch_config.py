@@ -5,7 +5,7 @@ Every ``conf/*.conf`` parses to a ``ReceiverConfig`` whose
 ``dataclasses.asdict`` equals the JAX package's exactly; a conf that selects
 something the port lacks raises ``NotImplementedError`` naming the field or
 key, at ``Receiver(cfg, device="cpu")`` or at the binding step that reads
-the key. Registry errors carry the JAX package's messages. The streaming
+the key; all 16 shipped confs run whole. Registry errors carry the JAX package's messages. The streaming
 FIR and fractional resampler equal JAX's ``ops/fir.py`` over several
 consecutive blocks of seeded input within rtol 1e-5 / atol 1e-5, and the
 rate conditioner reads the same block lengths.
@@ -42,12 +42,11 @@ UNPORTED = {
     "gps_l5": None,
     "hybrid_gps_galileo": None,
     "ppp_static": None,           # PPP (test_torch_outputs attaches it)
-    "gps_l1_notch": ("registry", "InputFilter.implementation=Notch_Filter"),
-    "labsat3": ("registry",
-                "SignalSource.implementation=Labsat_Signal_Source"),
+    "gps_l1_notch": None,         # the notch on the receiver's device
+    "labsat3": None,              # the LabSat 3 source, decimated 8:1
     "gps_l1_file": None,
     "gps_l1_realtime_tpu": None,
-    "gps_l1_supl": None,          # SUPL: refused by the CLI, see test_torch_cli
+    "gps_l1_supl": None,          # SUPL: see test_torch_cli / test_torch_supl
     "rtk_rover": None,            # RTK (test_torch_outputs attaches them)
     "rtk_rover_ntrip": None,
 }
@@ -107,24 +106,36 @@ def test_check_ported_names_role_and_block():
         assert (dataclasses.asdict(cfg)
                 == dataclasses.asdict(jini.receiver_config_from_ini(jc)))
         treg.check_ported(tc, cfg.signal_plan)
-    for text, named in (
-            ("SignalSource.implementation=Custom_UDP_Signal_Source\n",
-             "SignalSource.implementation=Custom_UDP_Signal_Source"),
-            ("SignalSource.implementation=UHD_Signal_Source\n"
-             "SignalSource.driver=mock\n",
-             "SignalSource.implementation=UHD_Signal_Source")):
+    # every source and input filter JAX builds passes, a hardware front-end
+    # with the mock driver among them
+    for text in ("SignalSource.implementation=Custom_UDP_Signal_Source\n",
+                 "SignalSource.implementation=UHD_Signal_Source\n"
+                 "SignalSource.driver=mock\n",
+                 "InputFilter.implementation=Beamformer_Filter\n"):
         jc, tc = _both(text)
         cfg = tini.receiver_config_from_ini(tc)
         assert (dataclasses.asdict(cfg)
                 == dataclasses.asdict(jini.receiver_config_from_ini(jc)))
-        with pytest.raises(NotImplementedError, match=named):
-            treg.check_ported(tc, cfg.signal_plan)
+        treg.check_ported(tc, cfg.signal_plan)
+    # the multi-file source (the multi-source receiver) still raises
+    named = "SignalSource.implementation=Multichannel_File_Signal_Source"
+    jc, tc = _both(named + "\n")
+    cfg = tini.receiver_config_from_ini(tc)
+    assert (dataclasses.asdict(cfg)
+            == dataclasses.asdict(jini.receiver_config_from_ini(jc)))
+    with pytest.raises(NotImplementedError, match=named):
+        treg.check_ported(tc, cfg.signal_plan)
+    # and so does a front-end driver other than the mock
+    _, tc = _both("SignalSource.implementation=UHD_Signal_Source\n")
+    with pytest.raises(NotImplementedError, match="driver uhd"):
+        tini.receiver_config_from_ini(tc)
 
 
 def test_binding_details(tmp_path):
     """upload_bits: absent -> 0, a valid value taken, a bad one refused
-    (JAX drops it); PVT.trop_model / iono_model OFF; unported input
-    filters and multi-source confs refused by key."""
+    (JAX drops it); PVT.trop_model / iono_model OFF; an input filter built
+    on the given device, an unknown one and multi-source confs refused by
+    key."""
     _, tc = _both("")
     assert tini.receiver_config_from_ini(tc).upload_bits == 0
     _, tc = _both("GNSS-SDR.upload_bits=4\n")
@@ -140,9 +151,12 @@ def test_binding_details(tmp_path):
         _, tc = _both(f"InputFilter.implementation={impl}\n")
         assert tini.input_filter_from_ini(tc) is None
     _, tc = _both("InputFilter.implementation=Pulse_Blanking_Filter\n")
-    with pytest.raises(NotImplementedError,
-                       match="InputFilter.implementation=Pulse_Blanking"):
-        tini.input_filter_from_ini(tc)
+    flt = tini.input_filter_from_ini(tc, device="cpu")
+    assert flt.name == "Pulse_Blanking_Filter"
+    assert flt.device == torch.device("cpu")
+    _, tc = _both("InputFilter.implementation=Median_Filter\n")
+    with pytest.raises(NotImplementedError, match="Median_Filter"):
+        tini.input_filter_from_ini(tc, device="cpu")
     _, tc = _both("")
     assert tini.multisource_from_ini(tc) is None
     _, tc = _both("Receiver.sources_count=2\n")
@@ -163,13 +177,15 @@ def test_source_from_ini_matches_jax(tmp_path):
     for attr in ("path", "item_type", "fs", "repeat", "total_samples"):
         assert getattr(ts, attr) == getattr(js, attr), attr
     np.testing.assert_array_equal(ts.read(2000), js.read(2000))
-    for impl in ("Labsat_Signal_Source", "RtlTcp_Signal_Source",
-                 "Nsr_File_Signal_Source", "Raw_Array_Signal_Source",
-                 "Spir_File_Signal_Source"):
-        _, tc = _both(f"SignalSource.implementation={impl}\n")
-        with pytest.raises(NotImplementedError,
-                           match=f"SignalSource.implementation={impl}"):
+    # every other source is held against JAX in test_torch_sources; what
+    # the JAX package does not build raises in both, naming the source
+    for impl in ("Multichannel_File_Signal_Source", "Tape_Signal_Source"):
+        jc, tc = _both(f"SignalSource.implementation={impl}\n")
+        with pytest.raises(NotImplementedError, match=impl) as je:
+            jini.source_from_ini(jc)
+        with pytest.raises(NotImplementedError, match=impl) as te:
             tini.source_from_ini(tc)
+        assert str(te.value) == str(je.value)
 
 
 def _conditioners(fs_in, fs_out, jfir):

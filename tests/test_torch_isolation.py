@@ -132,3 +132,34 @@ def test_icd_table_copies_equal_jax():
             assert value == jax_tables[key], (path.name, key)
         seen |= set(part)
     assert {"beidou_b3i_g2_init", "glonass_gnav_crc_q"} <= seen
+
+
+# the input-conditioning, assistance and source slice's modules: the probe
+# above imports each of them
+CONDITIONING_MODULES = tuple(f"gnss_sdr_tpu_torch.{m}" for m in (
+    "ops.interference", "ops.beamformer", "ops.fir", "config.ini",
+    "config.registry", "utils.front_end_cal", "io.uper", "io.supl",
+    "utils.rinex2assist", "io.sources", "io.native", "io.rf_driver",
+    "io.ref_xml"))
+
+
+def test_conditioning_modules_are_walked():
+    import pkgutil
+
+    import gnss_sdr_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(gnss_sdr_tpu_torch.__path__,
+                                                   "gnss_sdr_tpu_torch.")}
+    assert set(CONDITIONING_MODULES) <= names, \
+        set(CONDITIONING_MODULES) - names
+
+
+def test_native_source_is_the_port_copy():
+    """io/native.py builds the port's own copy of the sample decoders,
+    into build/, never native/ of the JAX package."""
+    from gnss_sdr_tpu_torch.io import native
+    assert native._SRC == ROOT / "gnss_sdr_tpu_torch" / "csrc" / "sampleio.cpp"
+    assert native.BUILD_DIR == ROOT / "build" / "native"
+    body = native._SRC.read_text().split("#include", 1)[1]
+    jax_body = (ROOT / "native" / "sampleio.cpp").read_text().split(
+        "#include", 1)[1]
+    assert body == jax_body
