@@ -227,6 +227,46 @@ Phases, one line each, with their seconds:
             Each CLI run of phases 20-25 launches K2 once per tracking
             dispatch and K1 never; the CPU rehearsal runs them short and
             without their checks.
+26. tcp     the main capture's first 3 s on a GPS L1 C/A group with
+            tcp_connector=True, a LoopFilterPeer thread per channel on
+            127.0.0.1 (run after cli_supl): every satellite tracking, its
+            last carrier within 5 Hz of the truth Doppler, C/N0 > 40, no
+            peer error; no K2 launch (the loops close on the host) and K1
+            once per round of the engine (each round correlates the next
+            epoch of every channel in one launch, downloading only the
+            taps), the first round's launch held against K1's plain
+            version on the same inputs; the engine's seconds in the
+            correlations against those in the exchanges with the peers.
+27. dumps   the main capture's first 14 s with dump_dir set (warm-started
+            with the main run's ephemerides; the first observable waits for
+            a subframe's TOW, 12.1 s into this capture): the four npz dumps
+            read back with utils/dump_tools, each PRN's last tracking rows
+            equal to the receiver's channel records, one PVT row per fix.
+28. e1_8ms  the hybrid capture through the hybrid phase's E1 group alone
+            with acq_variant="e1_8ms" (run after cli_hybrid): the hybrid
+            phase's E1 PRNs acquired and tracked; pcps_8ms_search, cccwsr_search and quicksync_search on
+            the card against the CPU: peak cell equal, CFAR within rtol
+            1e-3.
+29. ms_dual_band  tests/test_e2e_multisource.py's dual-band run: GPS L1 at
+            2 MSps and GPS L5 at 12 MSps (7 satellites each, 50 dB-Hz, 42 s
+            from T0 352800.08, seeds 101 / 102) as two branches of the
+            MultiSourceReceiver, with that test's PppEngine on the merged
+            observables, and all its checks (tracking, the shared
+            ephemerides, the merged fix, PPP's float and the wide-lane
+            integers against the truth geometry); K2 on each branch's final
+            carry; then cli_multisource: the captures' first 4 s as two
+            ishort files through a two-source conf by the CLI, both branches
+            dispatching and tracking.
+30. ms_gps_glonass  tests/test_e2e_multisource.py's GPS L1 (6 satellites,
+            2 MSps, seed 103) + GLONASS L1 (4 satellites, 8 MSps, t0_day
+            7200.08, seed 104) run: both tracked, a merged G + R fix within
+            2 m / 5 m with >= 8 satellites; K2 on each branch's final carry.
+31. nonlinear_kf  the cubature and unscented filter banks (128 channels) on
+            the card against the CPU within rtol 1e-5.
+            Each branch of phases 29-30 launches K2 once per tracking
+            dispatch (counted per branch) and K1 never. Each capture is
+            generated just before its phase and freed after it. The CPU
+            rehearsal runs 1-3 s of each, without their checks.
 
 The line before the last two is the kernels' JSON record, then the card's
 name and power limit, then the result line. Float32 matrix products run in
@@ -3287,6 +3327,727 @@ def phase_sources(device, rf_seconds: float = 2.8) -> int:
     return k2
 
 
+# ------------------------------------------------------- multi-source ---
+MS_T0, MS_DUR = 352800.08, 42.0       # tests/test_e2e_multisource.py
+MS_FS_L1, MS_FS_L5, MS_FS_GLO = 2.0e6, 12.0e6, 8.0e6
+MS_CLI_S = 4.0
+
+
+def dual_band_capture(device, duration_s: float) -> dict:
+    """tests/test_e2e_multisource.py's dual-band captures, generated on
+    ``device``: GPS L1 C/A at 2 MSps and GPS L5 at 12 MSps, 7 satellites
+    each at 50 dB-Hz (10 degree mask), ``duration_s`` from T0 352800.08,
+    seeds 101 / 102; with the seconds each took."""
+    from gnss_sdr_tpu_torch.utils import scenario
+
+    t0 = time.perf_counter()
+    sc1 = scenario.build_gps_l1_scenario(
+        t0_gps=MS_T0, duration_s=duration_s, n_sats=7, cn0_dbhz=50.0,
+        fs=MS_FS_L1, el_mask_deg=10.0)
+    sc5 = scenario.build_gps_l5_scenario(
+        t0_gps=MS_T0, duration_s=duration_s, n_sats=7, cn0_dbhz=50.0,
+        fs=MS_FS_L5, el_mask_deg=10.0)
+    x1 = sc1.generate(seed=101, device=device)
+    t1 = time.perf_counter()
+    x5 = sc5.generate(seed=102, device=device)
+    return dict(sc1=sc1, sc5=sc5, x1=x1, x5=x5, l1_s=t1 - t0,
+                l5_s=time.perf_counter() - t1)
+
+
+def gps_glonass_capture(device, duration_s: float | None) -> dict:
+    """tests/test_e2e_multisource.py's GPS + GLONASS captures, generated on
+    ``device``: GLONASS L1, 4 satellites at 48 dB-Hz, 8 MSps, t0_day
+    7200.08, seed 104, the scenario's own duration (``duration_s`` cuts
+    it), and GPS L1 C/A, 6 satellites at 47 dB-Hz, 2 MSps, seed 103, as
+    long, rounded up; with the seconds they took."""
+    from gnss_sdr_tpu_torch.utils import scenario
+
+    t0 = time.perf_counter()
+    sc_r = scenario.build_glonass_l1_scenario(t0_day=7200.08, fs=MS_FS_GLO,
+                                              n_sats=4, cn0_dbhz=48.0)
+    if duration_s is not None:
+        sc_r.duration_s = duration_s
+    dur = float(np.ceil(sc_r.duration_s))
+    sc_g = scenario.build_gps_l1_scenario(t0_gps=MS_T0, duration_s=dur,
+                                          n_sats=6, cn0_dbhz=47.0,
+                                          fs=MS_FS_L1)
+    x_g = sc_g.generate(seed=103, device=device)
+    x_r = sc_r.generate(seed=104, device=device)
+    return dict(sc_g=sc_g, sc_r=sc_r, x_g=x_g, x_r=x_r, dur=dur,
+                seconds=time.perf_counter() - t0)
+
+
+def _branch_launches(ms) -> list:
+    """Count each branch's K2 launches: the launch counter's growth across
+    each of the branch's tracking dispatches (an instance attribute
+    shadowing the method; the receiver is not changed)."""
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+
+    counts = [0] * len(ms.receivers)
+    for bi, r in enumerate(ms.receivers):
+        def wrapper(*a, _fn=r._dispatch_tracking, _bi=bi, **kw):
+            n0 = tk.launches
+            try:
+                return _fn(*a, **kw)
+            finally:
+                counts[_bi] += tk.launches - n0
+        r._dispatch_tracking = wrapper
+    return counts
+
+
+def _ms_run(device, phase: str, branches: list, extra_sinks=()) -> dict:
+    """One MultiSourceReceiver over ``branches`` [(signal, fs, n_ch, prns,
+    x)] with the solver without an atmosphere: the receiver line (wall,
+    each branch's tracked PRNs, dispatches and K2 launches) and the checks
+    every multi-source run shares: each branch launched K2 once per
+    tracking dispatch and K1 never (on the card)."""
+    from gnss_sdr_tpu_torch.io.sources import ArraySignalSource
+    from gnss_sdr_tpu_torch.ops import correlator
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver.multisource import (MultiSourceReceiver,
+                                                         SourceBranchConfig)
+    from gnss_sdr_tpu_torch.receiver.receiver import ReceiverConfig
+
+    t0 = time.perf_counter()
+    ms = MultiSourceReceiver([SourceBranchConfig(
+        receiver=ReceiverConfig(signal=sig, fs=fs, n_channels=n,
+                                prns=tuple(prns), chunk_ms=100,
+                                pvt_apply_tropo=False, pvt_apply_iono=False),
+        source=ArraySignalSource(x, fs)) for sig, fs, n, prns, x in branches],
+        device=device)
+    for sink in extra_sinks:
+        ms.obs_sinks.append(sink)
+    launches = _branch_launches(ms)
+    correlator.launches = 0
+    tk.launches = 0
+    ms.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tracked = ms.tracked_prns()
+    disp = [r.tracking_dispatches for r in ms.receivers]
+    _line(phase, t0, step="receiver", wall_s=f"{wall:.3f}",
+          stream_s=[f"{len(b[4]) / b[1]:.3f}" for b in branches],
+          tracked=[sorted(tracked[i]) for i in range(len(branches))],
+          scenario=[sorted(b[3]) for b in branches], dispatches=disp,
+          k2_launches=launches, k1_launches=correlator.launches,
+          fixes=len(ms.fixes))
+    if device.type == "cuda" and not (
+            launches == disp and all(d > 0 for d in disp)
+            and correlator.launches == 0 and tk.launches == sum(disp)):
+        raise SystemExit(f"{phase}: K2 launches {launches} != dispatches "
+                         f"{disp}, or K1 launched {correlator.launches} "
+                         f"times")
+    return dict(ms=ms, k2_launches=launches, wall_s=wall, t0=t0)
+
+
+def _ms_fix_checks(fixes, sc, min_sats: int) -> tuple:
+    """tests/test_e2e_multisource.py's fix budget: the mean ENU offset of
+    the last 5 fixes within 2D < 2 m and 3D < 5 m, the last fix with at
+    least ``min_sats`` satellites."""
+    err = _fix_error(fixes[-5:], sc) if fixes else (np.inf, np.inf)
+    n_sats = fixes[-1].n_sats if fixes else 0
+    return err, n_sats, err[0] < 2.0 and err[1] < 5.0 and n_sats >= min_sats
+
+
+def _wide_lane_truth(sc1, ppp, raw_epochs) -> tuple:
+    """tests/test_e2e_multisource.py:204-247: each held wide-lane integer
+    against the truth-geometry integer (between-satellite single
+    differences of the phase minus the true range, per signal). Returns
+    (held, checked, wrong)."""
+    from gnss_sdr_tpu_torch import constants as C
+
+    om, c = 7.2921151467e-5, C.SPEED_OF_LIGHT_M_S
+    consts: dict = {}
+    for epoch in raw_epochs[::25]:
+        for o in epoch:
+            if o.signal not in ("1C", "L5"):
+                continue
+            eph = sc1.ephemerides[o.prn]
+            dts = eph.clock_offset(o.t_tx_sv)
+            p, _v = eph.position_velocity(o.t_tx_sv - dts)
+            tau = np.linalg.norm(p - sc1.rcv_ecef) / c
+            th = om * tau
+            rot = np.array([[np.cos(th), np.sin(th), 0.0],
+                            [-np.sin(th), np.cos(th), 0.0], [0, 0, 1.0]])
+            rho = np.linalg.norm(rot @ p - sc1.rcv_ecef)
+            lam = c / (o.carrier_freq_hz
+                       or C.SIGNALS[o.signal].carrier_freq_hz)
+            consts.setdefault((o.signal, o.prn), []).append(
+                o.carrier_phase_cycles * lam - (rho - c * dts))
+    lam1, lam5 = c / 1_575_420_000.0, c / 1_176_450_000.0
+    held = ppp.filter.fixed_wl
+    ref = ppp.filter._last_fix[0][1] if ppp.filter._last_fix else None
+    if ref is None and ppp.filter._mw:
+        ref = max((k for k in ppp.filter._mw),
+                  key=lambda k: ppp.filter._mw[k][0])[1]
+    checked, wrong = 0, []
+    for (_, prn), wl_held in held.items():
+        try:
+            a1 = np.mean(consts[("1C", prn)]) - np.mean(consts[("1C", ref)])
+            a5 = np.mean(consts[("L5", prn)]) - np.mean(consts[("L5", ref)])
+        except KeyError:
+            wrong.append((prn, wl_held, None))
+            continue
+        wl_true = a1 / lam1 - a5 / lam5
+        if abs(wl_true - round(wl_true)) >= 0.35 or wl_held != round(wl_true):
+            wrong.append((prn, wl_held, float(wl_true)))
+        checked += 1
+    return dict(held), checked, wrong
+
+
+def phase_ms_dual_band(device, cap: dict, check: bool,
+                       cli_s: float = MS_CLI_S) -> dict:
+    """tests/test_e2e_multisource.py's dual-band run on the card: its
+    captures (``dual_band_capture``, consumed: the phase frees them), one
+    branch each of a MultiSourceReceiver with
+    the solver without an atmosphere, and tests/test_e2e_multisource.py's
+    PppEngine fed from its merged observables (obs_sinks): both branches
+    track their PRN sets; every L5 PRN's ephemeris in the shared store
+    (sqrt_a within 1e-3 of the truth); the last 5 merged fixes within
+    2D < 2 m / 3D < 5 m with >= 6 satellites; PPP: solutions, no
+    narrow-lane fix, the last success rate < 0.9, the final float within
+    0.6 m horizontally and 1.0 m vertically; >= 4 held wide-lane integers,
+    each the truth-geometry integer. Then K2 on each branch's final carry,
+    and ``cli_multisource`` on the captures' first ``cli_s`` seconds.
+    Returns each branch's K2 launches."""
+    from gnss_sdr_tpu_torch.receiver.pvt import geodesy
+    from gnss_sdr_tpu_torch.receiver.pvt.ppp_engine import PppEngine
+
+    sc1, sc5 = cap["sc1"], cap["sc5"]
+    x1, x5 = cap.pop("x1"), cap.pop("x5")
+    print(f"[ms_dual_band] step=generate samples={[len(x1), len(x5)]} "
+          f"prns={[sorted(sc1.prns), sorted(sc5.prns)]} "
+          f"l1_seconds={cap['l1_s']:.3f} l5_seconds={cap['l5_s']:.3f}",
+          flush=True)
+    if not set(sc5.prns) <= set(sc1.prns):
+        raise SystemExit(f"L5 PRNs {sc5.prns} not among L1's {sc1.prns}")
+
+    keyed = {("G", p): sc1.ephemerides[p] for p in sc1.prns}
+    ppp = PppEngine(keyed, x0_ecef=(0.0, 0.0, 0.0), mode="static",
+                    estimate_tropo=False, sigma_pr_m=0.7,
+                    sigma_phase_m=0.004, obs_spacing_s=0.5,
+                    ratio_threshold=2.5, code_bias_m=0.15)
+    ppp.seed_position(sc1.rcv_ecef + np.array([11.0, -7.0, 16.0]))
+    raw_epochs: list = []
+    run = _ms_run(device, "ms_dual_band", [
+        ("1C", MS_FS_L1, 7, sc1.prns, x1), ("L5", MS_FS_L5, 7, sc5.prns, x5)],
+        extra_sinks=(ppp.push_epoch,
+                     lambda t, obs: raw_epochs.append(list(obs))))
+    ms = run["ms"]
+    tracked = ms.tracked_prns()
+    k2_err = None
+    for bi, (x, name) in enumerate(((x1, "ms_l1_final_carry"),
+                                    (x5, "ms_l5_final_carry"))):
+        k2_err = _worst(k2_err, phase_k2_case(
+            name, device, *_final_carry_case(ms.receivers[bi], x)))
+    cli_k2 = phase_cli_multisource(device, x1, x5, sc1, sc5, cli_s)
+    del x1, x5
+    if check:
+        t2 = time.perf_counter()
+        bad_eph = [p for p in sc5.prns if ("G", p) not in ms.ephemerides
+                   or abs(ms.ephemerides[("G", p)].sqrt_a
+                          - sc1.ephemerides[p].sqrt_a) >= 1e-3]
+        err, n_sats, fix_ok = _ms_fix_checks(ms.fixes, sc1,
+                                             len(sc1.prns) - 1)
+        lat, lon, _ = sc1.rcv_llh
+        final = ppp.solutions[-1] if ppp.solutions else None
+        enu = (geodesy.ecef_to_enu(final.pos_ecef - sc1.rcv_ecef, lat, lon)
+               if final is not None else np.full(3, np.inf))
+        held, checked, wrong = _wide_lane_truth(sc1, ppp, raw_epochs)
+        _line("ms_dual_band", t2, step="checks",
+              ephemerides=len(ms.ephemerides), eph_bad=bad_eph,
+              fixes=len(ms.fixes), err_2d_m=f"{err[0]:.3f}",
+              err_3d_m=f"{err[1]:.3f}", n_sats=n_sats,
+              ppp_solutions=len(ppp.solutions),
+              nl_fixed_epochs=ppp.filter.n_fixed_epochs,
+              last_success_rate=f"{ppp.filter.last_success_rate:.4f}",
+              ppp_h_m=f"{np.hypot(enu[0], enu[1]):.3f}",
+              ppp_v_m=f"{enu[2]:.3f}", wide_lanes_held=len(held),
+              wide_lanes_checked=checked, wide_lanes_wrong=wrong,
+              merged_epochs=len(raw_epochs))
+        bad = [what for what, ok in (
+            ("L1 tracked", sorted(tracked[0]) == sorted(sc1.prns)),
+            ("L5 tracked", sorted(tracked[1]) == sorted(sc5.prns)),
+            ("ephemerides", len(ms.ephemerides) >= len(sc5.prns)
+             and not bad_eph),
+            ("merged fix", len(ms.fixes) >= 3 and fix_ok),
+            ("PPP solutions", bool(ppp.solutions)),
+            ("no narrow-lane fix", ppp.filter.n_fixed_epochs == 0),
+            ("success rate", ppp.filter.last_success_rate < 0.9),
+            ("PPP float", np.hypot(enu[0], enu[1]) < 0.6
+             and abs(enu[2]) < 1.0),
+            ("wide lanes", len(held) >= 4 and checked >= 4 and not wrong))
+            if not ok]
+        if bad:
+            raise SystemExit(f"ms_dual_band phase failed its checks: {bad}")
+    return dict(l1_launches=run["k2_launches"][0],
+                l5_launches=run["k2_launches"][1], cli_launches=cli_k2,
+                k2_err=k2_err)
+
+
+def _ms_summary(stdout: str) -> dict:
+    """The multi-source CLI's summary: per branch (signals, tracked PRNs,
+    dispatches) and the launch counts."""
+    branches = [dict(signals=re.findall(r"'(\w+)'", m.group(2)),
+                     tracked=[int(v) for v in m.group(3).split(",")
+                              if v.strip()], dispatches=int(m.group(4)))
+                for m in re.finditer(
+                    r"branch (\d+): signals=(\[[^\]]*\]) fs=\d+ samples=\d+ "
+                    r"tracked PRNs: \[([\d, ]*)\]; tracking_dispatches=(\d+)",
+                    stdout)]
+    m = re.search(r"tracking_dispatches=(\d+) tracking_kernel_launches=(\d+) "
+                  r"multicorrelator_launches=(\d+)", stdout)
+    if m is None or not branches:
+        raise SystemExit(f"no multi-source summary in the CLI's output: "
+                         f"{stdout!r}")
+    return dict(branches=branches, dispatches=int(m.group(1)),
+                k2=int(m.group(2)), k1=int(m.group(3)))
+
+
+def phase_cli_multisource(device, x1, x5, sc1, sc5, seconds: float) -> int:
+    """The dual-band captures' first ``seconds`` as two ishort files through
+    a two-source conf of tests/test_multisource.py's MULTISOURCE_CONF form
+    (SignalSource0 at 2 MSps for Channels_1C, SignalSource1 at 12 MSps for
+    Channels_L5, Resampler1.sample_freq_out=12000000,
+    Channel7.RF_channel_ID=1) by ``python -m gnss_sdr_tpu_torch -c``: both
+    branches dispatch and track satellites of their captures only, K2
+    launched once per dispatch and K1 never. Returns the K2 launches."""
+    platform = "cuda" if device.type == "cuda" else "cpu"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        f0, f1 = tmp / "l1.ishort", tmp / "l5.ishort"
+        _write_ishort(f0, x1[: int(seconds * MS_FS_L1)])
+        _write_ishort(f1, x5[: int(seconds * MS_FS_L5)])
+        conf = tmp / "ms.conf"
+        keys = {"GNSS-SDR.internal_fs_sps": 2000000,
+                "Receiver.sources_count": 2,
+                "Channels_1C.count": 7, "Channels_L5.count": 7,
+                "Channel0.RF_channel_ID": 0, "Channel7.RF_channel_ID": 1,
+                "Resampler1.sample_freq_out": 12000000,
+                "PVT.trop_model": "OFF", "PVT.iono_model": "OFF"}
+        for k, (f, fs) in enumerate(((f0, MS_FS_L1), (f1, MS_FS_L5))):
+            keys.update({f"SignalSource{k}.implementation":
+                         "File_Signal_Source",
+                         f"SignalSource{k}.filename": f,
+                         f"SignalSource{k}.item_type": "ishort",
+                         f"SignalSource{k}.sampling_frequency": int(fs)})
+        conf.write_text("".join(f"{k}={v}\n" for k, v in keys.items()))
+        t1 = time.perf_counter()
+        stdout, stderr = _run_cli(conf, platform)
+        cli_s = time.perf_counter() - t1
+    got = _ms_summary(stdout)
+    br = got["branches"]
+    _line("cli_multisource", t0, seconds_of_capture=seconds,
+          cli_seconds=f"{cli_s:.3f}",
+          branches=[b["signals"] for b in br],
+          tracked=[b["tracked"] for b in br],
+          branch_dispatches=[b["dispatches"] for b in br],
+          tracking_dispatches=got["dispatches"], k2_launches=got["k2"],
+          k1_launches=got["k1"])
+    scen = (sorted(sc1.prns), sorted(sc5.prns))
+    bad = [label for label, ok in (
+        ("branches", [b["signals"] for b in br] == [["1C"], ["L5"]]),
+        ("tracking", all(b["dispatches"] > 0 and b["tracked"]
+                         and set(b["tracked"]) <= set(s)
+                         for b, s in zip(br, scen))))
+        if not ok]
+    _cli_checks("cli_multisource", device, got, stderr, bad)
+    return got["k2"]
+
+
+def phase_ms_gps_glonass(device, cap: dict, check: bool) -> dict:
+    """tests/test_e2e_multisource.py's GPS + GLONASS run on the card: its
+    captures (``gps_glonass_capture``, consumed), one branch each, on
+    their own time scales: both branches track their PRN sets, >= 3
+    fixes, a merged fix with both a G and an R clock, the last 5 such
+    fixes within 2D < 2 m / 3D < 5 m with >= 8 satellites. Then K2 on each
+    branch's final carry."""
+    sc_g, sc_r = cap["sc_g"], cap["sc_r"]
+    x_g, x_r = cap.pop("x_g"), cap.pop("x_r")
+    print(f"[ms_gps_glonass] step=generate samples={[len(x_g), len(x_r)]} "
+          f"prns={[sorted(sc_g.prns), sorted(sc_r.prns)]} "
+          f"stream_s={[cap['dur'], round(sc_r.duration_s, 3)]} "
+          f"seconds={cap['seconds']:.3f}", flush=True)
+    run = _ms_run(device, "ms_gps_glonass", [
+        ("1C", MS_FS_L1, 6, sc_g.prns, x_g),
+        ("1G", MS_FS_GLO, 4, sc_r.prns, x_r)])
+    ms = run["ms"]
+    k2_err = None
+    for bi, (x, name) in enumerate(((x_g, "ms_gps_final_carry"),
+                                    (x_r, "ms_glo_final_carry"))):
+        k2_err = _worst(k2_err, phase_k2_case(
+            name, device, *_final_carry_case(ms.receivers[bi], x)))
+    del x_g, x_r
+    if check:
+        t1 = time.perf_counter()
+        tracked = ms.tracked_prns()
+        merged = [f for f in ms.fixes if "R" in f.system_clock_s
+                  and "G" in f.system_clock_s]
+        err, n_sats, fix_ok = _ms_fix_checks(merged, sc_g, 8)
+        _line("ms_gps_glonass", t1, step="checks", fixes=len(ms.fixes),
+              merged_fixes=len(merged), err_2d_m=f"{err[0]:.3f}",
+              err_3d_m=f"{err[1]:.3f}", n_sats=n_sats,
+              ephemerides=sorted(ms.ephemerides))
+        bad = [what for what, ok in (
+            ("GPS tracked", sorted(tracked[0]) == sorted(sc_g.prns)),
+            ("GLONASS tracked", sorted(tracked[1]) == sorted(sc_r.prns)),
+            ("fixes", len(ms.fixes) >= 3),
+            ("merged G + R fix", bool(merged) and fix_ok)) if not ok]
+        if bad:
+            raise SystemExit(f"ms_gps_glonass phase failed its checks: {bad}")
+    return dict(gps_launches=run["k2_launches"][0],
+                glo_launches=run["k2_launches"][1], k2_err=k2_err)
+
+
+def phase_e1_8ms(device, cap: dict, hyb: dict) -> int:
+    """The hybrid capture again through a receiver of the hybrid phase's E1
+    group alone (6 channels, its loop settings) with
+    ``acq_variant="e1_8ms"`` (Galileo_E1_PCPS_8ms_Ambiguous_Acquisition):
+    the same E1 PRNs acquired and tracked as the hybrid phase's PCPS, K2
+    once per dispatch. Then pcps_8ms_search (on an E1 satellite), cccwsr_search (E1
+    data + pilot) and quicksync_search (a GPS satellite, folded by 2) on
+    card tensors against the same functions on the CPU: peak cell (code
+    phase, Doppler) equal and the CFAR statistic within rtol 1e-3
+    (tests/test_torch_acquisition.py's tolerance). Returns the K2
+    launches."""
+    from gnss_sdr_tpu_torch import constants
+    from gnss_sdr_tpu_torch.io.sources import ArraySignalSource
+    from gnss_sdr_tpu_torch.models import codes
+    from gnss_sdr_tpu_torch.ops import acquisition as acq
+    from gnss_sdr_tpu_torch.ops import correlator
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    sc_g, sc_e, x = cap["sc_g"], cap["sc_e"], cap["x"]
+    t0 = time.perf_counter()
+    cfg = ReceiverConfig(
+        fs=HYB_FS, chunk_ms=100, signal="1B", n_channels=6,
+        prns=tuple(sc_e.prns), acq_variant="e1_8ms",
+        acq_doppler_max_hz=5000.0, acq_doppler_step_hz=125.0,
+        pll_bw_hz=20.0, dll_bw_hz=2.0, pll_bw_narrow_hz=8.0,
+        dll_bw_narrow_hz=0.75, pvt_apply_tropo=False, pvt_apply_iono=False)
+    rx = Receiver(cfg, device=device)
+    correlator.launches = 0
+    tk.launches = 0
+    rx.run_source(ArraySignalSource(x, HYB_FS))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    k1, k2 = correlator.launches, tk.launches
+    g8 = rx.groups[0]
+    tracked = sorted(ch.prn for ch in g8.channels if ch.state == "tracking")
+    pcps = sorted(ch.prn for ch in hyb["rx"].groups[1].channels
+                  if ch.state == "tracking")
+    _line("e1_8ms", t0, step="receiver", variant=g8.rx_cfg.acq_variant,
+          window=list(rx._acq_window(g8)), tracked_e1=tracked,
+          pcps_tracked_e1=pcps, dispatches=rx.tracking_dispatches,
+          k2_launches=k2, k1_launches=k1)
+    bad = []
+    if tracked != pcps:
+        bad.append(f"E1 tracked {tracked} with e1_8ms, {pcps} with PCPS")
+    if device.type == "cuda" and not (k2 == rx.tracking_dispatches > 0
+                                      and k1 == 0):
+        bad.append(f"K2 launches {k2} != dispatches {rx.tracking_dispatches}"
+                   f", or K1 launched {k1} times")
+
+    # the variant searches on card tensors against the CPU
+    spec = constants.SIGNALS["1B"]
+    spc = int(round(HYB_FS * spec.code_period_s))
+    spchip = max(1, int(np.ceil(HYB_FS / spec.code_rate_cps)))
+    boc = spec.subcarrier_rate_hz
+    prn_e = sorted(sc_e.prns)[0]
+    rep = codes.sample_code(codes.code_chips("1B", prn_e), HYB_FS,
+                            spec.code_rate_cps, spc, boc_rate=boc)
+    rep_p = codes.sample_code(codes.pilot_code_chips("1B", prn_e), HYB_FS,
+                              spec.code_rate_cps, spc, boc_rate=boc)
+
+    def cf(r):
+        return np.conj(np.fft.fft(r))[None].astype(np.complex64)
+    dop = acq.make_doppler_grid(5000, 125)
+    seg = x[spc: 3 * spc]
+    prn_g = sorted(sc_g.prns)[0]
+    spc_g = int(HYB_FS * 1e-3)
+    rep_g = codes.sample_code(codes.code_chips("1C", prn_g), HYB_FS,
+                              1.023e6, spc_g)
+    folded = rep_g.reshape(2, spc_g // 2).sum(axis=0)
+    cases = {
+        "pcps_8ms": (acq.pcps_8ms_search,
+                     (seg, cf(np.concatenate([rep, rep])),
+                      cf(np.concatenate([rep, -rep])), dop),
+                     dict(fs=HYB_FS, samples_per_code=spc,
+                          samples_per_chip=spchip)),
+        "cccwsr": (acq.cccwsr_search, (seg, cf(rep), cf(rep_p), dop),
+                   dict(fs=HYB_FS, samples_per_code=spc,
+                        samples_per_chip=spchip, noncoherent=2)),
+        "quicksync": (acq.quicksync_search, (x[:spc_g], cf(folded), dop),
+                      dict(fs=HYB_FS, samples_per_code=spc_g,
+                           folding_factor=2, samples_per_chip=4)),
+    }
+    for name, (fn, args, kw) in cases.items():
+        t1 = time.perf_counter()
+        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+        want = fn(*host, **kw)
+        got = fn(*[a.to(device) for a in host], **kw)
+        same_cell = (int(got.code_phase[0]) == int(want.code_phase[0])
+                     and float(got.doppler_hz[0]) == float(want.doppler_hz[0]))
+        rel = abs(float(got.test_cfar[0]) - float(want.test_cfar[0])) / \
+            float(want.test_cfar[0])
+        _line("e1_8ms", t1, search=name, device_cell=[
+            int(got.code_phase[0]), float(got.doppler_hz[0])],
+            cpu_cell=[int(want.code_phase[0]), float(want.doppler_hz[0])],
+            cfar=f"{float(got.test_cfar[0]):.4f}", cfar_rel_err=f"{rel:.3e}")
+        if not (same_cell and rel <= 1e-3):
+            bad.append(f"{name}: cell {same_cell}, CFAR rel err {rel:.3e}")
+    if bad:
+        raise SystemExit(f"e1_8ms phase failed its checks: {bad}")
+    return k2
+
+
+def phase_tcp(device, main_run: dict, seconds: float) -> dict:
+    """The main capture's first ``seconds`` on a GPS L1 C/A group with
+    ``tcp_connector=True`` (GPS_L1_CA_TCP_CONNECTOR_Tracking): one
+    LoopFilterPeer thread per channel on 127.0.0.1 (ephemeral ports, every
+    socket with a timeout), the loops stepped on the host through the
+    peers, each round's epochs correlated by K1 on the chunk the receiver
+    uploaded (acquisition on the card too), no K2 launch.
+    tests/test_tcp_tracking.py:148-170's checks for every satellite: its
+    channel tracking, the last record's carrier within 5 Hz of the truth
+    Doppler, C/N0 > 40 dB-Hz, no peer error. K1 launches once per round of
+    the engine; its first round's inputs go through K1's plain version too
+    (max_abs_err against K1's RTOL / ATOL). The engine's seconds in the
+    correlations (upload of the round's parameters, the launch, the taps'
+    download) and in the exchanges with the peers, per round. Returns the
+    K2 and K1 launches and K1's error on the path."""
+    from gnss_sdr_tpu_torch.io.sources import ArraySignalSource
+    from gnss_sdr_tpu_torch.ops import correlator
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver import tcp_tracking
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+
+    sc, x = main_run["sc"], main_run["x"][: int(seconds * FS)]
+    t0 = time.perf_counter()
+    rx = Receiver(ReceiverConfig(
+        signal="1C", fs=FS, n_channels=len(sc.prns), prns=tuple(sc.prns),
+        chunk_ms=100, tcp_connector=True, tcp_port_ch0=0), device=device)
+    g = rx.groups[0]
+    eng = g.tcp_engine
+    peers = [tcp_tracking.LoopFilterPeer(p, code_period_s=1e-3)
+             for p in eng.ports]
+    for p in peers:
+        p.start()
+    # the first round's inputs, kept to hold K1 against its plain version
+    # (the wrapper is called through unchanged and counts its launch)
+    first: list = []
+    launch = correlator.batch_epoch_correlate
+
+    def spy(*a, **kw):
+        if not first:
+            first.append(([t.clone() if isinstance(t, torch.Tensor) else t
+                           for t in a], dict(kw)))
+        return launch(*a, **kw)
+    correlator.batch_epoch_correlate = spy
+    correlator.launches = 0
+    tk.launches = 0
+    try:
+        rx.run_source(ArraySignalSource(x, FS))
+    finally:
+        correlator.batch_epoch_correlate = launch
+        rx.close()
+        for p in peers:
+            p.join(timeout=30)
+    k1, k2 = correlator.launches, tk.launches
+    wall = time.perf_counter() - t0
+    k1_err = float("nan")
+    if first:
+        a, kw = first[0]
+        got = launch(*a, **kw)
+        want = correlator.epoch_correlate_plain(*a, **kw)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        gk, wk = got.double().cpu().numpy(), want.double().cpu().numpy()
+        k1_err = float(np.abs(gk - wk).max())
+        k1_ok = bool(np.allclose(gk, wk, rtol=RTOL, atol=ATOL)
+                     and np.isfinite(gk).all())
+    truth = {s.prn: s for s in sc.sats}
+    rows, bad = [], []
+    for ch in g.channels:
+        last = ch.last_record()
+        if ch.state != "tracking" or last is None:
+            bad.append(f"channel {ch.ch_id} {ch.state}")
+            continue
+        t = last.abs_start_sample / FS
+        s = truth[ch.prn]
+        fd = (s.doppler_hz + s.doppler_rate_hz_s * t
+              + 0.5 * s.doppler_jerk_hz_s2 * t * t)
+        rows.append((ch.prn, round(float(last.carrier_freq - fd), 3),
+                     round(float(last.cn0_dbhz), 2)))
+        if not (abs(last.carrier_freq - fd) < 5.0 and last.cn0_dbhz > 40.0):
+            bad.append(f"PRN {ch.prn}: carrier {last.carrier_freq - fd:+.2f}"
+                       f" Hz from the truth, C/N0 {last.cn0_dbhz:.1f}")
+    errors = [repr(p.error) for p in peers if p.error is not None]
+    alive = sum(p.is_alive() for p in peers)
+    rounds = max(eng.rounds, 1)
+    _line("tcp", t0, wall_s=f"{wall:.3f}", stream_s=f"{seconds:.3f}",
+          tracked=sorted(rx.tracked_prns()), scenario=sorted(sc.prns),
+          prn_carrier_err_hz_cn0=rows, peer_errors=errors, peers_alive=alive,
+          dispatches=rx.tracking_dispatches, k2_launches=k2,
+          k1_launches=k1, rounds=eng.rounds, epochs=eng.epochs,
+          k1_max_abs_err=f"{k1_err:.3e}",
+          correlate_s=f"{eng.seconds['correlate']:.4f}",
+          exchange_s=f"{eng.seconds['exchange']:.4f}",
+          correlate_us_per_round=f"{eng.seconds['correlate'] / rounds * 1e6:.1f}",
+          exchange_us_per_round=f"{eng.seconds['exchange'] / rounds * 1e6:.1f}",
+          exchange_us_per_epoch=f"{eng.seconds['exchange'] / max(eng.epochs, 1) * 1e6:.1f}")
+    if sorted(rx.tracked_prns()) != sorted(sc.prns):
+        bad.append(f"tracked {sorted(rx.tracked_prns())}")
+    if errors or alive or k2:
+        bad.append(f"peer errors {errors}, {alive} peers alive, K2 {k2}")
+    if device.type == "cuda" and not (k1 == eng.rounds > 0 and first
+                                      and k1_ok):
+        bad.append(f"K1 launches {k1} for {eng.rounds} rounds, K1 against "
+                   f"its plain version {k1_err:.3e}")
+    if bad:
+        raise SystemExit(f"tcp phase failed its checks: {bad}")
+    return dict(k2_launches=k2, k1_launches=k1, k1_err=k1_err)
+
+
+def phase_dumps(device, main_run: dict, seconds: float) -> int:
+    """The main capture's first ``seconds`` with ``dump_dir`` a temporary
+    directory, warm-started with the main run's ephemerides (an assistance
+    record): the four npz dumps read back with ``utils/dump_tools`` (no
+    plots), each PRN's last tracking rows equal to the receiver's own
+    channel records, one PVT row per fix, one observables row per satellite
+    of every epoch, the acquisition rows naming the tracked PRNs as
+    positive. Returns the K2 launches."""
+    from gnss_sdr_tpu_torch.io.sources import ArraySignalSource
+    from gnss_sdr_tpu_torch.ops import correlator
+    from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
+    from gnss_sdr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+    from gnss_sdr_tpu_torch.utils import dump_tools
+
+    sc, x = main_run["sc"], main_run["x"][: int(seconds * FS)]
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        rx = Receiver(ReceiverConfig(
+            signal="1C", fs=FS, n_channels=8, prns=tuple(sc.prns),
+            chunk_ms=100, pvt_apply_tropo=False, pvt_apply_iono=False,
+            dump_dir=str(tmp)), device=device)
+        rx.ephemerides.update(main_run["rx"].ephemerides)
+        n_obs = []
+        rx.obs_sinks.append(lambda t, obs: n_obs.append(len(obs)))
+        correlator.launches = 0
+        tk.launches = 0
+        rx.run_source(ArraySignalSource(x, FS))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        k1, k2 = correlator.launches, tk.launches
+        rx.close()
+        files = sorted(p.name for p in tmp.glob("*.npz"))
+        trk = dump_tools.read_tracking(tmp / "tracking.npz")
+        acq = dump_tools.read_acquisition(tmp / "acquisition.npz")
+        obs = (dump_tools.read_observables(tmp / "observables.npz")
+               if n_obs else {"prn": []})
+        pvt = (dump_tools.read_pvt(tmp / "pvt.npz") if rx.fixes
+               else {"x": []})
+        mismatch = []
+        for ch in rx.channels:
+            if ch.state != "tracking":
+                continue
+            recs = ch.records
+            t = {k: v[-len(recs):] for k, v in trk.get(ch.prn, {}).items()}
+            if not t or not (
+                    np.array_equal(t["abs_sample"],
+                                   [r.abs_start_sample for r in recs])
+                    and np.array_equal(t["epoch"],
+                                       [r.epoch_index for r in recs])
+                    and np.array_equal(
+                        t["carrier_doppler_hz"],
+                        np.float32([r.carrier_freq for r in recs]))
+                    and np.array_equal(
+                        t["rem_code_phase_chips"],
+                        np.float32([r.rem_code_phase for r in recs]))
+                    and np.array_equal(t["cn0_dbhz"],
+                                       np.float32([r.cn0_dbhz
+                                                   for r in recs]))):
+                mismatch.append(ch.prn)
+        positive = sorted({int(p) for p, ok in zip(acq["prn"],
+                                                   acq["positive"]) if ok})
+        enu = (dump_tools.pvt_enu(pvt, sc.rcv_ecef) if len(pvt["x"])
+               else np.zeros((0, 3)))
+        _line("dumps", t0, stream_s=f"{seconds:.3f}", files=files,
+              tracking_prns=sorted(trk), tracking_rows=sum(
+                  len(v["epoch"]) for v in trk.values()),
+              records_mismatch=mismatch, acquisition_rows=len(acq["prn"]),
+              acquisition_positive=positive,
+              observables_rows=len(obs["prn"]), observables_epochs=len(n_obs),
+              pvt_rows=len(pvt["x"]), fixes=len(rx.fixes),
+              last_fix_err_3d_m=(f"{np.linalg.norm(enu[-1]):.3f}"
+                                 if len(enu) else None),
+              dispatches=rx.tracking_dispatches, k2_launches=k2,
+              k1_launches=k1)
+    tracked = sorted(rx.tracked_prns())
+    full = device.type == "cuda"
+    for label, ok in (
+            ("files", not full or files == ["acquisition.npz",
+                                            "observables.npz", "pvt.npz",
+                                            "tracking.npz"]),
+            ("tracking PRNs", sorted(trk) == tracked == sorted(sc.prns)),
+            ("records", not mismatch),
+            ("acquisition", positive == tracked),
+            ("observables", len(obs["prn"]) == sum(n_obs)),
+            ("PVT rows", len(pvt["x"]) == len(rx.fixes)
+             and (not full or len(rx.fixes) > 0)),
+            ("K2 launches", not full or (k2 == rx.tracking_dispatches > 0
+                                         and k1 == 0))):
+        if not ok:
+            bad.append(label)
+    if bad:
+        raise SystemExit(f"dumps phase failed its checks: {bad}")
+    return k2
+
+
+def phase_nonlinear_kf(device) -> None:
+    """The cubature and unscented filter banks (ops/nonlinear_kf.py,
+    ``batched_predict`` / ``batched_update`` over 128 channels, a linear
+    transition and a sine measurement model, float64) on ``device`` against
+    the same functions on the CPU, within rtol 1e-5 (the tolerance the CPU
+    tests hold the port to JAX with)."""
+    from gnss_sdr_tpu_torch.ops import nonlinear_kf as nkf
+
+    rng = np.random.default_rng(11)
+    c, nx, ny = 128, 3, 2
+    host = dict(
+        f=rng.uniform(0.1, 1.0, (nx, nx)), h=rng.uniform(0.1, 1.0, (ny, nx)),
+        x=rng.standard_normal((c, nx)),
+        p=np.stack([np.diag(rng.uniform(0.5, 2.0, nx)) for _ in range(c)]),
+        q=np.stack([np.diag(rng.uniform(0.1, 0.5, nx)) for _ in range(c)]),
+        r=np.stack([np.diag(rng.uniform(0.2, 0.5, ny)) for _ in range(c)]),
+        z=rng.standard_normal((c, ny)))
+    for kind in ("cubature", "unscented"):
+        t0 = time.perf_counter()
+        outs = []
+        for dev in (torch.device("cpu"), device):
+            a = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            pred = nkf.batched_predict(getattr(nkf, f"{kind}_predict"))
+            upd = nkf.batched_update(getattr(nkf, f"{kind}_update"))
+            xp, pp = pred(a["x"], a["p"], lambda v, m=a["f"]: m @ v, a["q"])
+            xu, pu = upd(a["z"], xp, pp,
+                         lambda v, m=a["h"]: torch.sin(m @ v), a["r"])
+            outs.append([t.cpu().numpy() for t in (xp, pp, xu, pu)])
+        err = max(float(np.max(np.abs(g - w) / (np.abs(w) + 1e-12)))
+                  for g, w in zip(outs[1], outs[0]))
+        ok = all(np.allclose(g, w, rtol=1e-5, atol=1e-12)
+                 for g, w in zip(outs[1], outs[0]))
+        _line("nonlinear_kf", t0, bank=kind, channels=c, state=nx,
+              max_rel_err=f"{err:.3e}", ok=ok)
+        if not ok:
+            raise SystemExit(f"nonlinear_kf: the {kind} bank on {device} "
+                             f"disagrees with the CPU ({err:.3e})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
@@ -3327,6 +4088,18 @@ def main(argv=None) -> int:
         phase_cli_labsat3(device, 0.5, check=False)
         phase_front_end_cal(device)
         phase_sources(device)
+        main_run = phase_main(device, 3.0, check_fix=False)
+        phase_tcp(device, main_run, 1.0)
+        phase_dumps(device, main_run, 1.0)
+        del main_run
+        cap = hybrid_capture(3.0)
+        phase_e1_8ms(device, cap, phase_hybrid(device, cap, check=False))
+        del cap
+        phase_ms_dual_band(device, dual_band_capture(device, 2.0),
+                           check=False, cli_s=1.0)
+        phase_ms_gps_glonass(device, gps_glonass_capture(device, 2.0),
+                             check=False)
+        phase_nonlinear_kf(device)
         return 0
 
     t0 = time.perf_counter()
@@ -3373,6 +4146,9 @@ def main(argv=None) -> int:
     cli_k2 = phase_cli(device, main_run, 2.0)
     # SUPL assistance on the main capture's first SUPL_DUR s
     cli_supl_k2 = phase_cli_supl(device, main_run)
+    # TCP-connector tracking and the stage dumps on the main capture
+    tcp = phase_tcp(device, main_run, 3.0)
+    dumps_k2 = phase_dumps(device, main_run, SUPL_DUR)
     del main_run, rx, x
 
     t0 = time.perf_counter()
@@ -3385,6 +4161,7 @@ def main(argv=None) -> int:
         k2_err = _worst(k2_err, phase_k2_case(
             name, device, *_final_carry_case(hyb["rx"], cap["x"], group)))
     cli_hyb_k2 = phase_cli_hybrid(device, cap, hyb, check=True)
+    e1_8ms_k2 = phase_e1_8ms(device, cap, hyb)
     hyb_k1, hyb_k2 = hyb["k1_launches"], hyb["k2_launches"]
     del cap, hyb
     wide = {}
@@ -3436,6 +4213,15 @@ def main(argv=None) -> int:
     cli_labsat3_k2 = phase_cli_labsat3(device)
     phase_front_end_cal(device)
     sources_k2 = phase_sources(device)
+    # the multi-source receiver: dual-band L1 + L5 with PPP on its merged
+    # observables (and its CLI run), then GPS + GLONASS; the sigma-point
+    # filter banks
+    ms = phase_ms_dual_band(device, dual_band_capture(device, MS_DUR),
+                            check=True)
+    glo = phase_ms_gps_glonass(device, gps_glonass_capture(device, None),
+                               check=True)
+    k2_err = _worst(_worst(k2_err, ms["k2_err"]), glo["k2_err"])
+    phase_nonlinear_kf(device)
 
     a, k2c8 = timing["a_main_path"], timing_k2["k2_c8"]
     kf8 = timing_kf["k2_kf_c8"]
@@ -3453,6 +4239,8 @@ def main(argv=None) -> int:
         "e5a_launches": wide["5X"]["k1_launches"],
         **{f"{name}_launches": r["k1"] for name, r in runs.items()},
         "rtk_launches": rtk_k1,
+        "tcp_launches": tcp["k1_launches"],
+        "tcp_max_abs_err": tcp["k1_err"],
         "max_abs_err": k1_err,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
@@ -3512,6 +4300,14 @@ def main(argv=None) -> int:
         "cli_supl_launches": cli_supl_k2,
         "cli_labsat3_launches": cli_labsat3_k2,
         "sources_uhd_mock_launches": sources_k2,
+        "tcp_launches": tcp["k2_launches"],
+        "dumps_launches": dumps_k2,
+        "e1_8ms_launches": e1_8ms_k2,
+        "ms_dual_band_l1_launches": ms["l1_launches"],
+        "ms_dual_band_l5_launches": ms["l5_launches"],
+        "cli_multisource_launches": ms["cli_launches"],
+        "ms_gps_glonass_gps_launches": glo["gps_launches"],
+        "ms_gps_glonass_glo_launches": glo["glo_launches"],
         "library_ms": None,
     }, {
         "name": "tracking_chunk_kf",

@@ -11,9 +11,10 @@ pulse blanking, frequency translation, beamformer) runs on the receiver's
 device before the rate conditioner; SUPL A-GNSS assistance
 (``GNSS-SDR.SUPL_*``) is fetched from the configured server before the
 stream starts; the RTK rover (TCP or NTRIP base) and the PPP modes run on
-the host beside the receiver. Not ported yet, each raising
-``NotImplementedError`` naming its key or argument: multi-source confs and
-``--devices`` > 1.
+the host beside the receiver. A multi-source conf (``Receiver.sources_count``
+> 1 or a Multichannel_File_Signal_Source) runs one receiver branch per
+source on the same device, merged into one PVT (``MultiSourceReceiver``).
+Not ported yet, raising ``NotImplementedError``: ``--devices`` > 1.
 """
 
 from __future__ import annotations
@@ -76,13 +77,56 @@ def _start_keyboard_listener(rx) -> None:
     threading.Thread(target=listen, daemon=True).start()
 
 
+def _launch_counts() -> str:
+    from gnss_sdr_tpu_torch.ops import correlator, tracking_kernel
+
+    return (f"tracking_kernel_launches={tracking_kernel.launches} "
+            f"multicorrelator_launches={correlator.launches} "
+            f"tracking_kernel_kf_launches={tracking_kernel.kf_launches}")
+
+
+def _print_fix(f) -> None:
+    print(f"last fix: lat={f.lat_rad*57.29577951308232:.6f} "
+          f"lon={f.lon_rad*57.29577951308232:.6f} h={f.height_m:.1f} m "
+          f"({f.n_sats} sats, pdop {f.pdop:.2f})")
+
+
+def _run_multisource(multi, args, device) -> int:
+    """The reference's multi-source flowgraph (Receiver.sources_count > 1):
+    one receiver branch per source, merged observables and PVT (JAX package
+    __main__.py:97-108), with a line per branch."""
+    from gnss_sdr_tpu_torch.receiver.multisource import MultiSourceReceiver
+
+    branches, base_cfg = multi
+    if args.devices is not None:
+        # more than one device raises in Receiver (n_mesh_devices)
+        branches = [dataclasses.replace(b, receiver=dataclasses.replace(
+            b.receiver, n_mesh_devices=args.devices)) for b in branches]
+    rx = MultiSourceReceiver(branches, pvt_template=base_cfg, device=device)
+    try:
+        rx.run()
+    finally:
+        rx.close()
+    n = len(rx.fixes)
+    print(f"processed {len(branches)} sources, {n} PVT fixes")
+    for bi, r in enumerate(rx.receivers):
+        print(f"branch {bi}: signals={[g.signal for g in r.groups]} "
+              f"fs={r.cfg.fs:.0f} samples={r._sample_base} tracked PRNs: "
+              f"{sorted(r.tracked_prns())}; tracking_dispatches="
+              f"{r.tracking_dispatches}")
+    print(f"tracking_dispatches={sum(r.tracking_dispatches for r in rx.receivers)} "
+          + _launch_counts())
+    if n:
+        _print_fix(rx.fixes[-1])
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=args.log_level,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     log = logging.getLogger("gnss_sdr_tpu_torch")
-    from gnss_sdr_tpu_torch.config import ini, registry
-    from gnss_sdr_tpu_torch.ops import correlator, tracking_kernel
+    from gnss_sdr_tpu_torch.config import ini
     from gnss_sdr_tpu_torch.receiver.receiver import Receiver, resolve_device
 
     try:
@@ -107,9 +151,10 @@ def main(argv=None) -> int:
     if args.upload_bits:
         conf.set_property("GNSS-SDR.upload_bits", args.upload_bits)
 
-    ini.multisource_from_ini(conf)       # raises for multi-source confs
+    multi = ini.multisource_from_ini(conf, device=device)
+    if multi is not None:
+        return _run_multisource(multi, args, device)
     rcfg = ini.receiver_config_from_ini(conf)
-    registry.check_ported(conf, rcfg.signal_plan)
     if args.devices is not None:
         # more than one device raises in Receiver (n_mesh_devices)
         rcfg = dataclasses.replace(rcfg, n_mesh_devices=args.devices)
@@ -159,10 +204,7 @@ def main(argv=None) -> int:
     n = len(rx.fixes)
     print(f"processed: {rx._sample_base} samples, {n} PVT fixes")
     print(f"tracked PRNs: {sorted(rx.tracked_prns())}; tracking_dispatches="
-          f"{rx.tracking_dispatches} tracking_kernel_launches="
-          f"{tracking_kernel.launches} multicorrelator_launches="
-          f"{correlator.launches} tracking_kernel_kf_launches="
-          f"{tracking_kernel.kf_launches}")
+          f"{rx.tracking_dispatches} " + _launch_counts())
     if input_filter is not None:
         print(f"input filter: {input_filter.name} {input_filter.calls} "
               f"blocks, {input_filter.seconds:.3f} s on the host")
@@ -172,10 +214,7 @@ def main(argv=None) -> int:
               f"{len(supl_assist.acq)} acquisition hints")
     if n:
         print(f"first fix: tow={rx.fixes[0].tow_s:.3f} s")
-        f = rx.fixes[-1]
-        print(f"last fix: lat={f.lat_rad*57.29577951308232:.6f} "
-              f"lon={f.lon_rad*57.29577951308232:.6f} h={f.height_m:.1f} m "
-              f"({f.n_sats} sats, pdop {f.pdop:.2f})")
+        _print_fix(rx.fixes[-1])
     rtk = getattr(outputs, "rtk_engine", None)
     if rtk is not None:
         print(f"rtk solutions: {len(rtk.solutions)} "

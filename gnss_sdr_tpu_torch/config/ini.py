@@ -10,9 +10,9 @@ this receiver directly for A/B runs. Every conf parses to the same
 ``GNSS-SDR.upload_bits`` outside {4, 8, 32} raises instead of being dropped,
 and the reference's ``PVT.trop_model`` / ``PVT.iono_model`` set to ``OFF``
 turn the solver's atmosphere corrections off (the JAX binding reads
-neither key; no conf of the repo sets them).
-Multi-source setups and RF front-ends other than the mock driver raise
-``NotImplementedError`` naming the key.
+neither key; no conf of the repo sets them). Multi-source setups
+(``Receiver.sources_count`` > 1, Multichannel_File_Signal_Source) bind to
+``MultiSourceReceiver`` branches through :func:`multisource_from_ini`.
 
 Dialect: ``Role.key=value`` lines; ``;`` and ``#`` comments; an optional
 ``[GNSS-SDR]`` section header (ignored, as INIReader treats the whole file as
@@ -333,8 +333,8 @@ def input_filter_from_ini(conf: Configuration, role: str = "InputFilter",
 def source_from_ini(conf: Configuration, role: str = "SignalSource"):
     """Build the signal source from config: every implementation the JAX
     package builds (ini.py:296-392). Live RF front-ends stream through
-    ``io/rf_driver.py``; only its mock driver is ported, and another driver
-    raises ``NotImplementedError`` naming the key."""
+    ``io/rf_driver.py``; a driver whose vendor library is missing raises
+    its loader's error, as in the JAX package."""
     from gnss_sdr_tpu_torch.io import sources
 
     impl = conf.property(f"{role}.implementation", "File_Signal_Source")
@@ -407,12 +407,6 @@ def source_from_ini(conf: Configuration, role: str = "SignalSource"):
         # (io/rf_driver.py; reference uhd_signal_source.cc:60-200 and
         # siblings). Every adapter's conf keys map onto one RfConfig.
         from gnss_sdr_tpu_torch.io import rf_driver
-        drv_kind = conf.property(f"{role}.driver",
-                                 registry.HARDWARE_DRIVER_DEFAULT[impl])
-        if drv_kind != "mock":
-            raise NotImplementedError(
-                f"{role}.implementation={impl} (driver {drv_kind}): only "
-                f"the mock RF driver is ported")
         cfg = rf_driver.RfConfig(
             sampling_frequency=fs,
             center_freq_hz=float(conf.property(f"{role}.freq",
@@ -427,28 +421,96 @@ def source_from_ini(conf: Configuration, role: str = "SignalSource"):
             device_args=conf.property(
                 f"{role}.device_address",
                 conf.property(f"{role}.osmosdr_args", "")))
+        drv_kind = conf.property(f"{role}.driver",
+                                 registry.HARDWARE_DRIVER_DEFAULT[impl])
         playback = conf.property(f"{role}.mock_capture", "") or None
-        return rf_driver.RfSignalSource(
-            rf_driver.make_driver("mock", playback=playback), cfg)
+        driver = (rf_driver.make_driver("mock", playback=playback)
+                  if drv_kind == "mock" else rf_driver.make_driver(drv_kind))
+        return rf_driver.RfSignalSource(driver, cfg)
     raise NotImplementedError(f"signal source {impl} not supported yet")
 
 
-def multisource_from_ini(conf: Configuration):
-    """None for a single-source configuration; a multi-source one
-    (``Receiver.sources_count`` > 1, or a Multichannel_File_Signal_Source
-    with ``total_channels`` > 1; JAX package ini.py:394-477) raises
-    ``NotImplementedError`` naming the key: the multi-source receiver is not
-    ported yet."""
+def multisource_from_ini(conf: Configuration, device=None):
+    """Build a MultiSourceReceiver setup from a reference-style
+    multi-source configuration, or return None for single-source configs
+    (JAX package ini.py:394-477).
+
+    Reference format (``conf/gnss-sdr_multisource_Hybrid_ishort.conf``;
+    ``gnss_flowgraph.cc:126-737``): ``Receiver.sources_count=N``, one
+    ``SignalSourceK.*`` (+ optional ``InputFilterK.*`` / ``ResamplerK.*``)
+    section per source, and ``ChannelN.RF_channel_ID=K`` binding each
+    channel to a source. Channels are numbered across the signal groups in
+    plan order, and every channel of one signal group must bind to the same
+    source (a signal family lives in one band of one capture). A
+    Multichannel_File_Signal_Source (one section, ``filename0`` ..
+    ``filenameN-1`` at a common rate) becomes N file-source branches.
+
+    Per-source internal rate: ``ResamplerK.sample_freq_out``, falling back
+    to ``GNSS-SDR.internal_fs_spsK`` then the global internal_fs_sps: L1 at
+    2 MSps and L5 at 12 MSps in one receiver. Each branch's input filter
+    runs on ``device`` (``cuda:0`` unless given).
+
+    Returns ``(branches, base_cfg)`` with ``branches`` a list of
+    ``SourceBranchConfig``.
+    """
+    import dataclasses as _dc
+
+    from gnss_sdr_tpu_torch.receiver.multisource import SourceBranchConfig
+
     n_src = int(conf.property("Receiver.sources_count", 1))
-    if n_src > 1:
-        raise NotImplementedError(
-            f"Receiver.sources_count={n_src}: the multi-source receiver is "
-            f"not ported yet")
     multichannel = (str(conf.property("SignalSource.implementation", ""))
                     == "Multichannel_File_Signal_Source")
-    n_ch = int(conf.property("SignalSource.total_channels", 1))
-    if multichannel and n_ch > 1:
-        raise NotImplementedError(
-            f"SignalSource.total_channels={n_ch}: the multi-source receiver "
-            f"is not ported yet")
-    return None
+    if multichannel and n_src <= 1:
+        n_src = int(conf.property("SignalSource.total_channels", 1))
+    if n_src <= 1:
+        return None
+    base_cfg = receiver_config_from_ini(conf)
+    plan = [(e[0], e[1]) for e in base_cfg.signal_plan]
+
+    # bind each signal group to its source via the group's first channel
+    src_of_sig: dict[str, int] = {}
+    gidx = 0
+    for sig, cnt in plan:
+        rf = int(conf.property(f"Channel{gidx}.RF_channel_ID", 0))
+        rf = int(conf.property(f"Channels_{sig}.RF_channel_ID", rf))
+        # consistency: all channels of the group on one source
+        for c in range(gidx, gidx + cnt):
+            rc = int(conf.property(f"Channel{c}.RF_channel_ID", rf))
+            if rc != rf:
+                raise ValueError(
+                    f"Channel{c}.RF_channel_ID={rc} splits signal group "
+                    f"{sig} across sources (group is bound to {rf})")
+        src_of_sig[sig] = rf
+        gidx += cnt
+
+    fs_global = base_cfg.fs
+    branches = []
+    for k in range(n_src):
+        sigs = [(s, c) for s, c in plan if src_of_sig[s] == k]
+        if not sigs:
+            continue
+        fs_k = float(conf.property(
+            f"Resampler{k}.sample_freq_out",
+            conf.property(f"GNSS-SDR.internal_fs_sps{k}", fs_global)))
+        rcfg = _dc.replace(
+            base_cfg, signal=sigs[0][0], n_channels=sigs[0][1],
+            signal_plan=tuple(sigs), fs=fs_k)
+        if multichannel:
+            from gnss_sdr_tpu_torch.io import sources as _sources
+            source = _sources.FileSignalSource(
+                conf.property(f"SignalSource.filename{k}", ""),
+                item_type=conf.property("SignalSource.item_type",
+                                        "gr_complex"),
+                sampling_frequency=float(conf.property(
+                    "SignalSource.sampling_frequency", fs_global)),
+                samples=int(conf.property("SignalSource.samples", 0)))
+        else:
+            source = source_from_ini(conf, role=f"SignalSource{k}")
+        filt = input_filter_from_ini(conf, role=f"InputFilter{k}",
+                                     device=device)
+        branches.append(SourceBranchConfig(
+            receiver=rcfg, source=source, input_filter=filt))
+    if not branches:
+        raise ValueError("sources_count>1 but no signal group bound "
+                         "to any source")
+    return branches, base_cfg

@@ -3,14 +3,9 @@
 Port of gnss_sdr_tpu/config/registry.py (the reference's
 ``GNSSBlockFactory::GetBlock``, ``src/core/receiver/gnss_block_factory.cc``):
 the same tables, so a conf names the same blocks in both packages, and
-unknown names raise :class:`UnknownBlockError` at config time as there.
-
-:func:`check_ported` is the port's own: a name the JAX package accepts but
-whose block this port has not ported raises ``NotImplementedError`` naming
-the role and the block. :func:`validate_conf` stays as in the JAX package
-(it does not refuse unported names), so every conf parses to the same
-``ReceiverConfig`` in both packages; ``Receiver`` then refuses unported
-fields itself.
+unknown names raise :class:`UnknownBlockError` at config time as there
+(a hardware front-end whose driver library is missing among them). Every
+block the tables name is ported.
 """
 
 from __future__ import annotations
@@ -86,8 +81,7 @@ SOURCES = {"File_Signal_Source", "Custom_UDP_Signal_Source",
            "Two_Bit_Packed_File_Signal_Source",
            "Two_Bit_Cpx_File_Signal_Source",
            "Multichannel_File_Signal_Source"}
-# hardware front-ends stream through the io.rf_driver abstraction; the port
-# has its mock driver only
+# hardware front-ends stream through the io.rf_driver abstraction
 HARDWARE_SOURCES = {"UHD_Signal_Source", "Osmosdr_Signal_Source",
                     "Plutosdr_Signal_Source", "Fmcomms2_Signal_Source",
                     "Ad9361_Fpga_Signal_Source", "Flexiband_Signal_Source",
@@ -182,12 +176,12 @@ def validate_conf(conf, plan: list) -> dict:
             drv = conf.property("SignalSource.driver",
                                 HARDWARE_DRIVER_DEFAULT[src])
             if drv != "mock":
-                # the JAX package raises UnknownBlockError here when the
-                # driver's vendor library is missing; the port has the mock
-                # driver only
-                raise NotImplementedError(
-                    f"SignalSource.implementation={src} (driver {drv}): only "
-                    f"the mock RF driver is ported")
+                from gnss_sdr_tpu_torch.io import rf_driver
+                try:
+                    rf_driver.make_driver(drv)
+                except (ImportError, NotImplementedError) as e:
+                    raise UnknownBlockError(
+                        f"SignalSource.implementation={src}: {e}") from e
         else:
             _check("SignalSource", src, SOURCES)
     flt = conf.property("InputFilter.implementation", "")
@@ -218,65 +212,3 @@ def validate_conf(conf, plan: list) -> dict:
                         "front-end driver not present in this build")
                 _check(role, name, table)
     return overrides
-
-
-# what the port has: every other name the tables accept raises in
-# check_ported (every signal's receiver with PCPS acquisition and E5a's
-# noncoherent I/Q CAF variant, every single-stream source and input filter
-# and the rate conditioner; observables and PVT names all select the one
-# engine)
-PORTED_ACQUISITIONS = {n for n, (sig, ov) in ACQUISITIONS.items()
-                       if sig == "1C"
-                       or (sig in ("1B", "2S", "L5", "5X", "B1", "B3", "1G",
-                                   "2G") and not ov)
-                       or ov == {"acq_variant": "e5a_caf"}}
-PORTED_TRACKINGS = {"GPS_L1_CA_DLL_PLL_Tracking",
-                    "GPS_L1_CA_DLL_PLL_C_Aid_Tracking",
-                    "GPS_L1_CA_KF_Tracking",
-                    "GPS_L2_M_DLL_PLL_Tracking",
-                    "GPS_L5_DLL_PLL_Tracking", "GPS_L5i_DLL_PLL_Tracking",
-                    "Galileo_E1_DLL_PLL_VEML_Tracking",
-                    "Galileo_E5a_DLL_PLL_Tracking",
-                    "GLONASS_L1_CA_DLL_PLL_Tracking",
-                    "GLONASS_L1_CA_DLL_PLL_C_Aid_Tracking",
-                    "GLONASS_L2_CA_DLL_PLL_Tracking",
-                    "GLONASS_L2_CA_DLL_PLL_C_Aid_Tracking",
-                    "BEIDOU_B1I_DLL_PLL_Tracking",
-                    "BEIDOU_B3I_DLL_PLL_Tracking"}
-PORTED_TELEMETRIES = {"GPS_L1_CA_Telemetry_Decoder",
-                      "GPS_L2C_Telemetry_Decoder",
-                      "GPS_L5_Telemetry_Decoder",
-                      "Galileo_E1B_Telemetry_Decoder",
-                      "Galileo_E5a_Telemetry_Decoder",
-                      "GLONASS_L1_CA_Telemetry_Decoder",
-                      "GLONASS_L2_CA_Telemetry_Decoder",
-                      "BEIDOU_B1I_Telemetry_Decoder",
-                      "BEIDOU_B3I_Telemetry_Decoder",
-                      "SBAS_L1_Telemetry_Decoder"}
-# every source but the multi-file one (the multi-source receiver is not
-# ported); a hardware front-end passes here only with driver=mock, the
-# other drivers being refused in validate_conf
-PORTED_SOURCES = (SOURCES - {"Multichannel_File_Signal_Source"}) \
-    | HARDWARE_SOURCES
-PORTED_INPUT_FILTERS = set(INPUT_FILTERS)
-
-
-def check_ported(conf, plan: list) -> None:
-    """Raise ``NotImplementedError`` naming the role and the block for every
-    ``implementation=`` name of ``conf`` that the JAX package accepts but
-    this port has not ported. ``plan``: the [(signal, count), ...] channel
-    plan."""
-    roles = []
-    for entry in plan:
-        signal = entry[0]
-        roles += [(f"Acquisition_{signal}", PORTED_ACQUISITIONS),
-                  (f"Tracking_{signal}", PORTED_TRACKINGS),
-                  (f"TelemetryDecoder_{signal}", PORTED_TELEMETRIES)]
-    roles += [("SignalSource", PORTED_SOURCES),
-              ("InputFilter", PORTED_INPUT_FILTERS)]
-    for role, ported in roles:
-        name = conf.property(f"{role}.implementation", "")
-        if name and name not in ported:
-            raise NotImplementedError(
-                f"{role}.implementation={name}: this block is not ported "
-                f"yet")

@@ -1,9 +1,13 @@
 """Batched PCPS (parallel code-phase search) acquisition.
 
 Port of the JAX package's ``pcps_search`` / ``pcps_search_grids`` /
-``fine_doppler_search`` (gnss_sdr_tpu/ops/acquisition.py:64-230) and of its
+``fine_doppler_search`` (gnss_sdr_tpu/ops/acquisition.py:64-230), of its
 Galileo E5a ``noncoherent_iq_caf_search`` with ``caf_triangular_smooth``
-(:409-520): the whole
+(:409-520), of the Galileo E1 two-period ``pcps_8ms_search`` (:350) and of
+the library variants no conf selects (the registry maps those blocks to
+PCPS, as the JAX package does): ``TongDetector`` (:239),
+``quicksync_search`` with ``resolve_folded_phase`` (:271-348) and
+``cccwsr_search`` (:522): the whole
 [signal x doppler x code-phase] grid of the reference's
 ``pcps_acquisition.cc:633 acquisition_core`` as batched FFTs, with signals and
 Doppler bins on the batch axes. The JAX package scans over signals to bound
@@ -307,3 +311,159 @@ def simple_threshold_from_pfa(pfa: float, n_cells: int, n_fft: int) -> float:
     """Exponential-cell CFAR threshold for the max/power statistic."""
     lam = -np.log(max(1.0 - (1.0 - pfa) ** (1.0 / float(n_cells)), 1e-300))
     return float(2.0 * lam / n_fft)
+
+
+class TongDetector:
+    """Tong sequential detector (reference: pcps_tong_acquisition_cc).
+
+    Counter starts at B; +1 on a per-dwell hit, -1 on a miss; declare
+    detection at A, dismissal at 0. Robust near-threshold integration without
+    fixing the dwell count in advance.
+    """
+
+    def __init__(self, a: int = 8, b: int = 2, max_dwells: int = 30):
+        self.a = a
+        self.b = b
+        self.max_dwells = max_dwells
+        self.reset()
+
+    def reset(self) -> None:
+        self.count = self.b
+        self.dwells = 0
+
+    def update(self, hit: bool) -> str:
+        """Returns 'detected' | 'dismissed' | 'pending'."""
+        self.dwells += 1
+        self.count += 1 if hit else -1
+        if self.count >= self.a:
+            return "detected"
+        if self.count <= 0 or self.dwells >= self.max_dwells:
+            return "dismissed"
+        return "pending"
+
+
+def quicksync_search(x: torch.Tensor, code_fft_conj_folded: torch.Tensor,
+                     dopplers: torch.Tensor, *, fs: float,
+                     samples_per_code: int, folding_factor: int,
+                     samples_per_chip: int) -> AcqGridResult:
+    """QuickSync folded acquisition (reference pcps_quicksync_acquisition_cc).
+
+    The dwell is folded by summing ``folding_factor`` consecutive segments
+    before the FFT, shrinking the correlation to N/F points: F times less
+    FFT work at ~10 log10(F) dB sensitivity cost. The returned code phase is
+    the FOLDED phase; the true phase is one of ``folded_phase + k * N/F``
+    (:func:`resolve_folded_phase`).
+
+    Args:
+      x: [samples_per_code, 2] split-IQ dwell (one code period; complex64
+        also accepted).
+      code_fft_conj_folded: [S, N/F, 2] split conj(FFT(folded local code)).
+    """
+    xc = iq.as_complex(x)
+    cfc = iq.as_complex(code_fft_conj_folded)
+    nf = samples_per_code // folding_factor
+    n_full = nf * folding_factor
+    # Doppler wipe-off BEFORE folding: the fold sums segments nf/fs apart,
+    # which only stay coherent once the carrier is removed
+    xw = (xc[None, :n_full] * _carriers(dopplers, n_full, fs)).reshape(
+        -1, folding_factor, nf).sum(dim=1)                     # [D, Nf]
+    xf = fft_ops.fft(xw)[None, None]                            # [1,1,D,Nf]
+    block = _signal_block(1, dopplers.shape[0], nf)
+    parts = [_peaks(_magnitudes(xf, cfc[s0: s0 + block], nf), nf,
+                    samples_per_chip)
+             for s0 in range(0, cfc.shape[0], block)]
+    peaks, d_idxs, t_idxs, seconds = (torch.cat(p) for p in zip(*parts))
+    # the input power of the first Doppler row's folded dwell
+    return _result(peaks, t_idxs, seconds, dopplers[d_idxs], xw[0], 1, nf)
+
+
+def resolve_folded_phase(x: np.ndarray, code_replica: np.ndarray,
+                         folded_phase: int, doppler_hz: float, *,
+                         fs: float, folding_factor: int) -> int:
+    """Disambiguate a QuickSync folded code phase (host-side): test the F
+    candidate unfolded phases by direct correlation, return the best."""
+    x = np.asarray(x)
+    if x.ndim == 2:
+        x = x[:, 0] + 1j * x[:, 1]
+    n = len(code_replica)
+    nf = n // folding_factor
+    t = np.arange(n) / fs
+    wiped = x[:n] * np.exp(-2j * np.pi * doppler_hz * t)
+    best_k, best_m = 0, -1.0
+    for k in range(folding_factor):
+        ph = folded_phase + k * nf
+        m = abs(np.sum(wiped * np.roll(code_replica, ph)))
+        if m > best_m:
+            best_m, best_k = m, k
+    return folded_phase + best_k * nf
+
+
+def pcps_8ms_search(x: torch.Tensor, code_fft_conj_a: torch.Tensor,
+                    code_fft_conj_b: torch.Tensor, dopplers: torch.Tensor, *,
+                    fs: float, samples_per_code: int, samples_per_chip: int
+                    ) -> AcqGridResult:
+    """Two-code-period coherent PCPS (galileo_pcps_8ms_acquisition_cc).
+
+    Galileo E1 coherent integration extended to 8 ms (two 4 ms primary-code
+    periods) by correlating against TWO local replicas: code A = two
+    identical periods, code B = two periods with the second inverted
+    (galileo_pcps_8ms_acquisition_cc.cc:133-140); whichever hypothesis
+    matches the I/NAV symbol sign across the boundary wins, so a data-bit
+    flip inside the window costs nothing. Grid cell = max(|corr_A|^2,
+    |corr_B|^2).
+
+    Args:
+      x: [>= N, 2] float32 split-IQ dwell (complex64 also accepted); the
+        first N samples are searched.
+      code_fft_conj_a/b: [S, N, 2] split conj(FFT(replica)), N the FFT
+        window (two code periods, or the friendly length padding them).
+      dopplers: [D] float32 Doppler bins.
+    """
+    xc = iq.as_complex(x)
+    ca = iq.as_complex(code_fft_conj_a)
+    cb = iq.as_complex(code_fft_conj_b)
+    n_fft = ca.shape[-1]
+    xb = xc[None, :n_fft]
+    xf = fft_ops.fft(xb * _carriers(dopplers, n_fft, fs))[None, None]
+    block = _signal_block(1, dopplers.shape[0], n_fft)
+    nrm2 = float(np.float32(n_fft * n_fft))
+    parts = []
+    for s0 in range(0, ca.shape[0], block):
+        mag = torch.maximum(_power(xf, ca[s0: s0 + block]),
+                            _power(xf, cb[s0: s0 + block])) * nrm2
+        parts.append(_peaks(mag, samples_per_code, samples_per_chip))
+    peaks, d_idxs, t_idxs, seconds = (torch.cat(p) for p in zip(*parts))
+    return _result(peaks, t_idxs, seconds, dopplers[d_idxs], xb, 1, n_fft)
+
+
+def cccwsr_search(x: torch.Tensor, code_fft_conj_data: torch.Tensor,
+                  code_fft_conj_pilot: torch.Tensor, dopplers: torch.Tensor,
+                  *, fs: float, samples_per_code: int, samples_per_chip: int,
+                  noncoherent: int = 1, stride: int | None = None
+                  ) -> AcqGridResult:
+    """Coherent Combining With Sign Recovery (pcps_cccwsr_acquisition_cc):
+    Galileo E1 acquired by combining the E1B (data) and E1C (pilot)
+    correlations coherently under both relative-sign hypotheses and keeping
+    the stronger, ~3 dB over either component alone.
+
+    Shapes as :func:`pcps_search`, with one code-FFT stack per component.
+    """
+    xc = iq.as_complex(x)
+    cd = iq.as_complex(code_fft_conj_data)
+    cp = iq.as_complex(code_fft_conj_pilot)
+    n_fft = cd.shape[-1]
+    xb = _dwell_windows(xc, n_fft, noncoherent, stride)
+    xf = fft_ops.fft(xb[:, None, :] * _carriers(dopplers, n_fft, fs)[None])
+    block = _signal_block(xb.shape[0], dopplers.shape[0], n_fft)
+    nrm2 = float(np.float32(n_fft * n_fft))
+    parts = []
+    for s0 in range(0, cd.shape[0], block):
+        corr_d = fft_ops.ifft(xf[None] * cd[s0: s0 + block, None, None, :])
+        corr_p = fft_ops.ifft(xf[None] * cp[s0: s0 + block, None, None, :])
+        # sign recovery: max(|d+p|, |d-p|) per cell, noncoherent over dwells
+        mag = torch.maximum(torch.abs(corr_d + corr_p) ** 2,
+                            torch.abs(corr_d - corr_p) ** 2).sum(dim=1) * nrm2
+        parts.append(_peaks(mag, samples_per_code, samples_per_chip))
+    peaks, d_idxs, t_idxs, seconds = (torch.cat(p) for p in zip(*parts))
+    return _result(peaks, t_idxs, seconds, dopplers[d_idxs], xb, noncoherent,
+                   n_fft, components=2)

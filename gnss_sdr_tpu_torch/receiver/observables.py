@@ -160,3 +160,11 @@ class ObservablesEngine:
                 cn0_dbhz=ch["record"].cn0_dbhz,
                 carrier_freq_hz=ch.get("carrier_freq", 0.0)))
         return out
+
+    @property
+    def rx_clock_tow(self):
+        """Receiver time of sample 0 (s of week, or of day for GLONASS),
+        anchored at the first epoch with observables; None before it. The
+        multi-source receiver shares it across branches on one time
+        scale."""
+        return self._rx_origin_tow

@@ -74,6 +74,8 @@ class PvtSolution:
     # differences are the inter-system biases (reference: rtklib pntpos
     # estimates 3+NSYS states the same way).
     system_clock_s: dict = dataclasses.field(default_factory=dict)
+    # RAIM: (system, prn) excluded by fault detection, None if none
+    excluded_prn: tuple | None = None
     # which usable observations entered the final solution (elevation mask)
     used_mask: np.ndarray = None
     tow_s: float = 0.0
@@ -326,3 +328,56 @@ def solve_pvt(obs: list[ObsInput], ephemerides: dict,
 def d_subset(d: dict) -> dict:
     return {k: d[k] for k in ("gdop", "pdop", "hdop", "vdop")}
 
+
+# chi-square 99% quantiles by degrees of freedom (RAIM residual test)
+_CHI2_99 = {1: 6.63, 2: 9.21, 3: 11.34, 4: 13.28, 5: 15.09, 6: 16.81,
+            7: 18.48, 8: 20.09, 9: 21.67, 10: 23.21, 11: 24.73, 12: 26.22}
+
+
+def solve_pvt_fde(obs: list[ObsInput], ephemerides: dict,
+                  sigma_pr_m: float = 3.0, **kw) -> PvtSolution:
+    """RAIM fault detection and exclusion around :func:`solve_pvt`
+    (reference: rtklib valsol() + the single-exclusion FDE loop in pntpos).
+
+    Chi-square test on the weighted residual sum of squares; on failure,
+    re-solve with each satellite excluded and keep the best passing subset.
+    Sets ``excluded_prn`` when an exclusion was applied.
+    """
+    def chi2(sol) -> float:
+        # only satellites that entered the solution (elevation mask) count:
+        # a masked satellite's residual never influenced the estimate
+        if sol.residuals_m is None:
+            return np.inf
+        r = sol.residuals_m
+        if sol.used_mask is not None:
+            r = r[sol.used_mask]
+        return float(np.sum((r / sigma_pr_m) ** 2))
+
+    def dof(sol) -> int:
+        n_used = (int(sol.used_mask.sum()) if sol.used_mask is not None
+                  else sol.n_sats)
+        return max(1, n_used - (3 + max(len(sol.system_clock_s), 1)))
+
+    def threshold(sol) -> float:
+        return _CHI2_99.get(min(dof(sol), 12), 26.22)
+
+    sol = solve_pvt(obs, ephemerides, **kw)
+    sol.excluded_prn = None
+    if not sol.valid:
+        return sol
+    if chi2(sol) <= threshold(sol):
+        return sol
+    best, best_c = None, np.inf
+    for skip in range(len(obs)):
+        subset = obs[:skip] + obs[skip + 1:]
+        s2 = solve_pvt(subset, ephemerides, **kw)
+        if not s2.valid:
+            continue
+        c2 = chi2(s2)
+        if c2 < best_c:
+            best, best_c, best_skip = s2, c2, skip
+    if best is not None and best_c <= threshold(best):
+        best.excluded_prn = (obs[best_skip].system, obs[best_skip].prn)
+        return best
+    sol.excluded_prn = None
+    return sol

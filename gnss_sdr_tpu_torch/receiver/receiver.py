@@ -21,10 +21,14 @@ Galileo E1; L5Q / E5a-Q pilot tracking and the NH10 / CS20 / NH20 wipe
 after symbol sync for the overlaid signals; L2 CM's 20 ms code epochs;
 E5a's noncoherent I/Q CAF acquisition; GLONASS FDMA, each satellite
 searched and tracked at its frequency slot's IF), with the control plane
-(telecommands, assistance, output sinks) and the rate conditioner of
-``run_file_source``. Every ``ReceiverConfig`` field of the JAX package
-exists here; a field that selects a feature not yet ported raises
-``NotImplementedError`` naming the field.
+(telecommands, assistance, output sinks), the rate conditioner of
+``run_file_source``, the Galileo E1 8 ms two-hypothesis acquisition
+(``acq_variant="e1_8ms"``), the TCP-connector tracking groups (loop filters
+in an external peer, stepped from the host with each epoch's taps from the
+epoch multicorrelator on the device: ``receiver/tcp_tracking.py``) and the
+per-stage dumps (``dump_dir``, ``io/dumps.py``). Every ``ReceiverConfig``
+field of the JAX package exists here; only ``n_mesh_devices`` > 1 (channels
+sharded over several devices) raises ``NotImplementedError``.
 
 Device boundary: one upload per dispatch (int8 / packed-nibble / float32, as
 ``upload_bits`` says, dequantized on the device), one download of the packed
@@ -40,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import pathlib
 import time
 
 import numpy as np
@@ -120,29 +125,14 @@ class ReceiverConfig:
     n_mesh_devices: int | None = None
 
 
-# the signals whose codes, tracking and telemetry are ported
-PORTED_SIGNALS = ("1C", "1B", "2S", "L5", "5X", "B1", "B3", "1G", "2G")
-# the acquisition engines ported: PCPS, and Galileo E5a's noncoherent I/Q
-# search with CAF Doppler smoothing
-PORTED_ACQ_VARIANTS = ("pcps", "e5a_caf")
-
-
 def _check_ported(cfg: ReceiverConfig) -> None:
-    """Raise for every field that selects a feature this port lacks."""
-    unported = {
-        "signal": cfg.signal not in PORTED_SIGNALS,
-        "signal_plan": any(e[0] not in PORTED_SIGNALS
-                           for e in cfg.signal_plan),
-        "n_mesh_devices": bool(cfg.n_mesh_devices and cfg.n_mesh_devices > 1),
-        "tcp_connector": cfg.tcp_connector,
-        "acq_variant": cfg.acq_variant not in PORTED_ACQ_VARIANTS,
-        "dump_dir": cfg.dump_dir is not None,
-    }
-    for field, bad in unported.items():
-        if bad:
-            raise NotImplementedError(
-                f"ReceiverConfig.{field}={getattr(cfg, field)!r} selects a "
-                f"feature not ported yet")
+    """Raise ``NotImplementedError`` for channels sharded over several
+    devices (not ported). An ``acq_variant`` other than "e1_8ms" and
+    "e5a_caf" runs PCPS, as in the JAX package."""
+    if cfg.n_mesh_devices and cfg.n_mesh_devices > 1:
+        raise NotImplementedError(
+            f"ReceiverConfig.n_mesh_devices={cfg.n_mesh_devices!r} selects a "
+            f"feature not ported yet")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -290,6 +280,20 @@ class SignalGroup:
         self.acq_fails: dict[int, int] = {}
         self.pinned: dict[int, int] = {}   # local channel -> PRN
         self._vis_rank = None
+        # TCP-connector mode: the loops close through external peers; the
+        # host-stepped engine replaces the tracking kernel for this group
+        # (receiver/tcp_tracking.py; JAX package receiver.py:320-331)
+        self.tcp_engine = None
+        if cfg.tcp_connector:
+            from gnss_sdr_tpu_torch.receiver import tcp_tracking
+            self.tcp_engine = tcp_tracking.TcpTrackingEngine(
+                spec=self.spec, fs=cfg.fs, n_channels=n_channels,
+                n_steps=self.trk_cfg.n_steps, n_max=self.trk_cfg.n_max,
+                port_ch0=cfg.tcp_port_ch0,
+                table_rate=self.trk_cfg.table_rate,
+                cn0_min_dbhz=self.trk_cfg.cn0_min_dbhz,
+                carrier_lock_min=self.trk_cfg.carrier_lock_min,
+                max_lock_fail=self.trk_cfg.max_lock_fail)
 
     @property
     def n_max(self) -> int:
@@ -402,28 +406,68 @@ class Receiver:
         self.restart_requested = False
         self.stop_requested = False
         self.standby = False
+        # the tracing dumps (JAX package receiver.py:462-477), written by
+        # close_dumps
+        self._dumps = None
+        if config.dump_dir:
+            from gnss_sdr_tpu_torch.io import dumps as dumps_mod
+            d = pathlib.Path(config.dump_dir)
+            m = config.dump_mat
+            self._dumps = dict(
+                tracking=dumps_mod.TrackingDump(d / "tracking.npz", mat=m),
+                acquisition=dumps_mod.AcquisitionDump(
+                    d / "acquisition.npz", mat=m),
+                observables=dumps_mod.ObservablesDump(
+                    d / "observables.npz", mat=m),
+                pvt=dumps_mod.PvtDump(d / "pvt.npz", mat=m))
+            self.obs_sinks.append(
+                lambda t, obs: self._dumps["observables"].push_epoch(t, obs))
+            self.fix_sinks.append(
+                lambda sol: self._dumps["pvt"].push_fix(sol))
+
+    # ------------------------------------------------------------- channels
+    @property
+    def channels(self) -> list[Channel]:
+        """Receiver-wide channel list (all groups, global order)."""
+        return [ch for g in self.groups for ch in g.channels]
+
+    @property
+    def trk_state(self) -> trk.TrackingState:
+        """The primary signal group's tracking carry as a TrackingState
+        (the JAX package's field names), on the receiver's device. On the
+        card the carry lives packed in K2's buffer and is unpacked here,
+        on read only: the dispatch loop never pays for it."""
+        return trk.as_state(self.groups[0].trk_state)
 
     # ------------------------------------------------------------------ acq
     def _acq_window(self, g: SignalGroup) -> tuple[int, int]:
         """(fft_window, dwell_stride): the natural window (1 or 2 code
-        periods; one for the E5a CAF search) when its length is friendly
-        (ops/fft._split factors <= 512), else the next friendly length that
-        keeps every lag in [0, spc) wrap-free — the JAX package's rule, so
+        periods; one for the E5a CAF search, two for the E1 8 ms search)
+        when its length is friendly (ops/fft._split factors <= 512), else
+        the next friendly length that keeps every lag in [0, spc) wrap-free
+        (spc + the replica's nonzero length) — the JAX package's rule, so
         both search the same windows."""
         spc = g.spc
-        if g.rx_cfg.acq_variant == "e5a_caf":
-            base = spc
+        variant = g.rx_cfg.acq_variant
+        if variant == "e1_8ms":
+            base, nonzero = 2 * spc, 2 * spc
+        elif variant == "e5a_caf":
+            base, nonzero = spc, spc
         else:
-            base = 2 * spc if g.acq_double else spc
+            base, nonzero = (2 * spc if g.acq_double else spc), spc
         if fft_ops.is_friendly(base):
             return base, base
-        return fft_ops.friendly_len(spc + spc), base
+        return fft_ops.friendly_len(spc + nonzero), base
 
-    def _spectrum(self, g: SignalGroup, chips: np.ndarray) -> np.ndarray:
-        """split conj(FFT(one code period's replica of ``chips``)),
-        zero-padded to the FFT window."""
+    def _spectrum(self, g: SignalGroup, chips: np.ndarray,
+                  second: float | None = None) -> np.ndarray:
+        """split conj(FFT(one code period's replica of ``chips``)), followed
+        by a second period times ``second`` when given, zero-padded to the
+        FFT window."""
         rep = codes.sample_code(chips, self.cfg.fs, g.spec.code_rate_cps,
                                 g.spc, boc_rate=g.spec.subcarrier_rate_hz)
+        if second is not None:
+            rep = np.concatenate([rep, second * rep])
         window, _ = self._acq_window(g)
         if window > len(rep):
             rep = np.concatenate([rep, np.zeros(window - len(rep), rep.dtype)])
@@ -437,13 +481,21 @@ class Receiver:
         return g.acq_reps[prn]
 
     def _code_fft_pair(self, g: SignalGroup, prn: int) -> tuple:
-        """The e5a_caf search's replica spectra: separate data (E5a-I) and
-        pilot (E5a-Q) single-period replicas
+        """The variant searches' replica spectra. ``e1_8ms``: two-period
+        replicas A = [code, code] and B = [code, -code]
+        (galileo_pcps_8ms_acquisition_cc.cc:133-140), so a sign flip at the
+        period boundary matches one of the two hypotheses. ``e5a_caf``:
+        separate data (E5a-I) and pilot (E5a-Q) single-period replicas
         (galileo_e5a_noncoherent_iq_acquisition_caf_cc)."""
         if prn not in g.acq_reps2:
-            g.acq_reps2[prn] = (
-                self._spectrum(g, codes.code_chips(g.signal, prn)),
-                self._spectrum(g, codes.pilot_code_chips(g.signal, prn)))
+            chips = codes.code_chips(g.signal, prn)
+            if g.rx_cfg.acq_variant == "e1_8ms":
+                g.acq_reps2[prn] = (self._spectrum(g, chips, 1.0),
+                                    self._spectrum(g, chips, -1.0))
+            else:
+                g.acq_reps2[prn] = (
+                    self._spectrum(g, chips),
+                    self._spectrum(g, codes.pilot_code_chips(g.signal, prn)))
         return g.acq_reps2[prn]
 
     def _refine_doppler(self, g: SignalGroup, chunk: np.ndarray, prn: int,
@@ -569,7 +621,9 @@ class Receiver:
         candidates = candidates[: self.cfg.max_in_acquisition]
         if not candidates:
             return
-        nc = g.rx_cfg.acq_noncoherent
+        variant = g.rx_cfg.acq_variant
+        # the E1 8 ms search is one coherent two-period dwell
+        nc = 1 if variant == "e1_8ms" else g.rx_cfg.acq_noncoherent
         window, slab = self._acq_window(g)
         head_len = (nc - 1) * slab + window
         if len(chunk) < head_len:
@@ -585,12 +639,18 @@ class Receiver:
             g.rx_cfg.acq_doppler_max_hz, g.rx_cfg.acq_doppler_step_hz)
         # CFAR exclusion half-width: CEIL of samples/chip (receiver.py:743-750)
         spchip = max(1, int(np.ceil(self.cfg.fs / g.spec.code_rate_cps)))
-        if g.rx_cfg.acq_variant == "e5a_caf":
-            # data + pilot noncoherently, CAF Doppler re-selection; the
-            # unassisted grid, as the JAX package runs it
+        if variant in ("e1_8ms", "e5a_caf"):
+            # the unassisted grid, as the JAX package runs these variants
             pairs = [self._code_fft_pair(g, p) for p in candidates]
             cfa, cfb = (torch.from_numpy(np.stack(c)).to(dev)
                         for c in zip(*pairs))
+        if variant == "e1_8ms":
+            res = acq_ops.pcps_8ms_search(
+                head_dev, cfa, cfb, torch.from_numpy(dopplers).to(dev),
+                fs=self.cfg.fs, samples_per_code=g.spc,
+                samples_per_chip=spchip)
+        elif variant == "e5a_caf":
+            # data + pilot noncoherently, CAF Doppler re-selection
             caf_half = int(round(g.rx_cfg.acq_caf_window_hz
                                  / (2.0 * g.rx_cfg.acq_doppler_step_hz)))
             res = acq_ops.noncoherent_iq_caf_search(
@@ -605,6 +665,11 @@ class Receiver:
         cfar = res.test_cfar.cpu().numpy()
         code_phases = [int(v) for v in res.code_phase.cpu().numpy()]
         doppler_hz = [float(v) for v in res.doppler_hz.cpu().numpy()]
+        if self._dumps is not None:
+            self._dumps["acquisition"].push_batch(
+                g.signal, self._chunk_index, candidates, cfar,
+                res.test_max_power.cpu().numpy(), code_phases, doppler_hz,
+                res.magnitude.cpu().numpy(), g.rx_cfg.acq_threshold_cfar)
         order = np.argsort(-cfar)
         for idx in order:
             if not idle:
@@ -692,10 +757,16 @@ class Receiver:
         else:
             g.code_tables[ch.ch_id] = data_table
         g.tables_rev += 1
-        g.trk_state = trk.start_channel(
-            g.trk_state, ch.ch_id, code_freq=code_freq,
-            doppler_hz=doppler, sample_offset=int(delay),
-            if_freq_hz=g.if_freq_for(prn))
+        if g.tcp_engine is not None:
+            g.tcp_engine.start_channel(
+                ch.ch_id, code_table=g.code_tables[ch.ch_id],
+                code_freq=code_freq, doppler_hz=doppler,
+                sample_offset=int(delay), if_freq_hz=g.if_freq_for(prn))
+        else:
+            g.trk_state = trk.start_channel(
+                g.trk_state, ch.ch_id, code_freq=code_freq,
+                doppler_hz=doppler, sample_offset=int(delay),
+                if_freq_hz=g.if_freq_for(prn))
         g.acq_fails.pop(prn, None)
         ch.prn = prn
         ch.state = "tracking"
@@ -708,6 +779,8 @@ class Receiver:
     def _drop_channel(self, g: SignalGroup, ch: Channel) -> None:
         log.info("ch %d [%s]: PRN %s loss of lock",
                  ch.global_id, g.signal, ch.prn)
+        if g.tcp_engine is not None:
+            g.tcp_engine.stop_channel(ch.ch_id)
         g.trk_state = trk.stop_channel(g.trk_state, ch.ch_id)
         # the satellite was demonstrably present: retry on the fast cadence
         g.acq_fails.pop(ch.prn, None)
@@ -733,11 +806,19 @@ class Receiver:
     def _dispatch_tracking(self, g: SignalGroup, chunk_dev: torch.Tensor,
                            k: int = 1):
         """Enqueue this group's tracking loop; returns the packed [S, C, 13]
-        device tensor (not yet waited on), or None when no channel tracks."""
+        device tensor (not yet waited on), or None when no channel tracks.
+        A TCP-connector group steps its loops on the host through its peers
+        (JAX package receiver.py:1003-1012), each epoch's taps correlated on
+        the chunk's device by the epoch multicorrelator, and returns the
+        host outputs (f32, i32, loss flags) at once; it launches no fused
+        tracking kernel."""
         if not any(ch.state == "tracking" for ch in g.channels):
             return None
         cfg_k = g.trk_cfg_for(k)
         slab = k * self.chunk_len + g.n_max
+        if g.tcp_engine is not None:
+            return g.tcp_engine.process_chunk(chunk_dev[:slab],
+                                              k * self.chunk_len)
         self._refresh_tables_dev(g)
         g.trk_state, packed = trk.track_chunk_packed(
             cfg_k, chunk_dev, g.trk_state, g._tables_dev, g._sec_dev,
@@ -748,6 +829,9 @@ class Receiver:
 
     def _finish_tracking(self, g: SignalGroup, pend,
                          sample_base: int | None = None) -> None:
+        if isinstance(pend, tuple):       # a TCP group's host outputs
+            self._consume_tracking(g, *pend, sample_base)
+            return
         packed = pend.cpu().numpy()       # waits for the device work
         f32p, i32p, lol = trk.unpack_host_outputs(packed)
         self._consume_tracking(g, f32p, i32p, lol, sample_base)
@@ -755,8 +839,10 @@ class Receiver:
     def _consume_tracking(self, g: SignalGroup, f32p, i32p, lol,
                           sample_base: int | None = None) -> None:
         """Feed one chunk's packed tracking outputs into telemetry / records
-        and run the channel watchdogs. ``sample_base``: absolute sample index
-        of the chunk these outputs belong to (captured at dispatch)."""
+        and the tracking dump and run the channel watchdogs (the outputs of
+        the tracking kernel or of a TCP group's engine). ``sample_base``:
+        absolute sample index of the chunk these outputs belong to
+        (captured at dispatch)."""
         base = self._sample_base if sample_base is None else sample_base
         prompt = (f32p[..., 0] + 1j * f32p[..., 1]).astype(np.complex64)
         rem = f32p[..., 2]
@@ -764,6 +850,7 @@ class Receiver:
         carrf = f32p[..., 4]
         frac = f32p[..., 5]
         cn0 = f32p[..., 6]
+        lock = f32p[..., 7]
         valid = f32p[..., 8] > 0.5
         eidx = i32p[..., 0]
         start = i32p[..., 1]
@@ -783,7 +870,8 @@ class Receiver:
             # after bit sync: extended coherent integration (+ the
             # secondary-code wipe for NH/CS-overlaid signals), anchored at
             # the telemetry's bit boundary (dll_pll_veml_tracking.cc state 3)
-            if (g.extend_symbols > 1 and not ch.ext_configured
+            if (g.extend_symbols > 1 and g.tcp_engine is None
+                    and not ch.ext_configured
                     and getattr(ch.telemetry, "bit_phase", None) is not None):
                 anchor = int(ch.telemetry.bit_phase)
                 if g.spec.secondary_code:
@@ -796,6 +884,11 @@ class Receiver:
                 ch.ext_configured = True
                 log.info("ch %d [%s]: extended integration %d epochs",
                          ch.global_id, g.signal, g.extend_symbols)
+            if v.any() and self._dumps is not None:
+                self._dumps["tracking"].push_epochs(
+                    ch.global_id, ch.prn, base + start[v, i], eidx[v, i],
+                    prompt[v, i], cn0[v, i], carrf[v, i], codef[v, i],
+                    rem[v, i], lock[v, i])
             if lol[i] or getattr(ch.telemetry, "sync_failed", False):
                 self._drop_channel(g, ch)
 
@@ -1142,11 +1235,17 @@ class Receiver:
                 f"sats={f.n_sats} pdop={f.pdop:.2f}; tracking [{tracked}]")
 
     def close_dumps(self) -> None:
-        """Close the tracing dumps: none while ``dump_dir`` is unported."""
+        """Write the tracing dumps (one npz, and a .mat with ``dump_mat``,
+        per stage) under ``dump_dir``."""
+        if self._dumps is not None:
+            for d in self._dumps.values():
+                d.close()
 
     def close(self) -> None:
-        """Release external resources (the port holds none yet: no TCP
-        tracking peers, no dumps)."""
+        """Release external resources (TCP loop peers, dump files)."""
+        for g in self.groups:
+            if g.tcp_engine is not None:
+                g.tcp_engine.close()
         self.close_dumps()
 
     def checkpoint(self, path) -> None:

@@ -22,8 +22,8 @@ the NH20 overlay) in the port against the JAX package, on the CPU:
 - RINEX: a D1 ephemeris as a BeiDou navigation record and a ``2I``
   observation header, byte for byte with JAX's writers (creation clock
   frozen), and the record read back as JAX reads it;
-- the shipped ``conf/beidou_b1i.conf`` binds as JAX binds it, passes
-  ``check_ported`` and builds a receiver whose pool holds the GEO PRNs;
+- the shipped ``conf/beidou_b1i.conf`` binds as JAX binds it
+  and builds a receiver whose pool holds the GEO PRNs;
   GEO PRNs get the D2 decoder, ``signal="B3"`` builds, and SBAS PRNs (the
   one telemetry still to port) raise ``NotImplementedError``.
 
@@ -49,7 +49,6 @@ from gnss_sdr_tpu.receiver import telemetry as jtlm
 from gnss_sdr_tpu.receiver import tracking as jtrk
 from gnss_sdr_tpu.receiver.pvt import rinex as jrinex
 from gnss_sdr_tpu_torch.config import ini as tini
-from gnss_sdr_tpu_torch.config import registry as treg
 from gnss_sdr_tpu_torch.models import codes as tcodes
 from gnss_sdr_tpu_torch.models.ephemeris import IonoParams, KeplerEphemeris
 from gnss_sdr_tpu_torch.models.nav import beidou_d1 as td1
@@ -334,7 +333,6 @@ def test_b1i_conf_binds_and_builds():
     got = tini.receiver_config_from_ini(tconf)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert (got.signal, got.n_channels, got.fs) == ("B1", 6, 4.0e6)
-    treg.check_ported(tconf, got.signal_plan)
     g, = trx.Receiver(got, device="cpu").groups
     assert g.code_tables.shape == (6, 2046)
     assert g.acq_pool == list(range(1, 38))

@@ -9,9 +9,10 @@ files written; without ``--platform cpu`` and without a card it exits
 non-zero, never falling back to the CPU. A ``reset`` telecommand ends the
 run with exit code 42; SUPL assistance comes from a QA server on 127.0.0.1,
 never from the conf's default server; the notch filter runs before the
-receiver on a jammed capture; unported features (multi-source, the TCP
-connector tracking, more devices, RF drivers but the mock) raise
-``NotImplementedError`` naming their key or argument.
+receiver on a jammed capture; a multi-source conf runs one branch per
+source (two tiny files), a TCP-connector conf runs, a front-end whose
+driver library is missing fails with JAX's error; only more devices than
+one raise ``NotImplementedError``, naming the field.
 """
 
 import pathlib
@@ -129,17 +130,65 @@ def test_cli_reset_returns_42(tmp_path):
 
 
 @pytest.mark.parametrize("extra,argv,named", [
-    ("Receiver.sources_count=2\n", [], "Receiver.sources_count"),
-    ("Tracking_1C.implementation=GPS_L1_CA_TCP_CONNECTOR_Tracking\n", [],
-     "Tracking_1C.implementation=GPS_L1_CA_TCP_CONNECTOR"),
-    ("", ["--devices", "2"], "n_mesh_devices"),
-    ("SignalSource.implementation=UHD_Signal_Source\n", [], "driver uhd")])
+    ("", ["--devices", "2"], "n_mesh_devices")])
 def test_cli_refuses_unported(tmp_path, extra, argv, named):
     path = tmp_path / "empty.ibyte"
     path.write_bytes(b"")
     conf = _conf(tmp_path, extra, capture=path)
     with pytest.raises(NotImplementedError, match=named):
         tcli.main(["-c", conf, "--platform", "cpu"] + argv)
+
+
+def test_cli_tcp_connector_and_rf_driver(tmp_path, capsys):
+    """A TCP-connector conf (listeners on ephemeral ports) runs to its end
+    on an empty capture; a UHD front-end without its driver library fails
+    in the binding with the JAX CLI's error class and message."""
+    path = tmp_path / "empty.ibyte"
+    path.write_bytes(b"")
+    conf = _conf(tmp_path, "Tracking_1C.implementation="
+                 "GPS_L1_CA_TCP_CONNECTOR_Tracking\nTracking_1C.port_ch0=0\n",
+                 capture=path)
+    assert tcli.main(["-c", conf, "--platform", "cpu"]) == 0
+    assert "processed: 0 samples" in capsys.readouterr().out
+    conf = _conf(tmp_path, "SignalSource.implementation=UHD_Signal_Source\n",
+                 capture=path)
+    from gnss_sdr_tpu.config.registry import UnknownBlockError as JErr
+    from gnss_sdr_tpu_torch.config.registry import UnknownBlockError as TErr
+    with pytest.raises(JErr) as je:
+        jcli.main(["-c", conf, "--platform", "cpu"])
+    with pytest.raises(TErr) as te:
+        tcli.main(["-c", conf, "--platform", "cpu"])
+    assert str(te.value) == str(je.value)
+
+
+def test_cli_multisource_two_files(tmp_path, capsys):
+    """tests/test_multisource.py's MULTISOURCE_CONF form (GPS L1 C/A from
+    source 0 at 2 MSps, GPS L5 from source 1 at 12 MSps) on two tiny
+    files: one branch per source, each at its own rate, to the end of its
+    file."""
+    rng = np.random.default_rng(5)
+    names = []
+    for k, n in ((0, 4096), (1, 24000)):
+        f = tmp_path / f"src{k}.ishort"
+        rng.integers(-50, 50, 2 * n).astype(np.int16).tofile(f)
+        names.append(f)
+    conf = tmp_path / "ms.conf"
+    conf.write_text(
+        "GNSS-SDR.internal_fs_sps=2000000\nReceiver.sources_count=2\n"
+        "Channels_1C.count=2\nChannels_L5.count=1\n"
+        "Channel0.RF_channel_ID=0\nChannel2.RF_channel_ID=1\n"
+        + "".join(f"SignalSource{k}.implementation=File_Signal_Source\n"
+                  f"SignalSource{k}.filename={f}\n"
+                  f"SignalSource{k}.item_type=ishort\n"
+                  f"SignalSource{k}.sampling_frequency={fs}\n"
+                  for k, f, fs in ((0, names[0], 2000000),
+                                   (1, names[1], 12000000)))
+        + "Resampler1.sample_freq_out=12000000\n")
+    assert tcli.main(["-c", str(conf), "--platform", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "processed 2 sources, 0 PVT fixes" in out
+    assert "branch 0: signals=['1C'] fs=2000000" in out
+    assert "branch 1: signals=['L5'] fs=12000000" in out
 
 
 def test_cli_supl_from_a_local_server(tmp_path, capsys):

@@ -2,10 +2,13 @@
 (gnss_sdr_tpu_torch.ops.fir) against the JAX package's, on the CPU.
 
 Every ``conf/*.conf`` parses to a ``ReceiverConfig`` whose
-``dataclasses.asdict`` equals the JAX package's exactly; a conf that selects
-something the port lacks raises ``NotImplementedError`` naming the field or
-key, at ``Receiver(cfg, device="cpu")`` or at the binding step that reads
-the key; all 16 shipped confs run whole. Registry errors carry the JAX package's messages. The streaming
+``dataclasses.asdict`` equals the JAX package's exactly and builds a
+receiver: all 16 shipped confs run whole. Every block name of the JAX
+registry binds as JAX binds it (the E1 8 ms acquisition, the TCP-connector
+tracking blocks, the multi-file source among them); only channels sharded
+over several devices raise ``NotImplementedError``. Registry errors carry
+the JAX package's messages, a missing RF driver library's among them. The
+multi-source binding gives JAX's branches. The streaming
 FIR and fractional resampler equal JAX's ``ops/fir.py`` over several
 consecutive blocks of seeded input within rtol 1e-5 / atol 1e-5, and the
 rate conditioner reads the same block lengths.
@@ -30,30 +33,22 @@ torch.set_num_threads(1)   # one thread per xdist worker
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CONFS = sorted((ROOT / "conf").glob("*.conf"))
 
-# conf -> (where the port refuses it, the key or field named), or None when
-# the port runs it whole
-UNPORTED = {
-    "beidou_b1i": None,
-    "beidou_b3i": None,
-    "galileo_e5a": None,
-    "glonass_l1": None,
-    "glonass_l2": None,
-    "gps_l2c": None,
-    "gps_l5": None,
-    "hybrid_gps_galileo": None,
-    "ppp_static": None,           # PPP (test_torch_outputs attaches it)
-    "gps_l1_notch": None,         # the notch on the receiver's device
-    "labsat3": None,              # the LabSat 3 source, decimated 8:1
-    "gps_l1_file": None,
-    "gps_l1_realtime_tpu": None,
-    "gps_l1_supl": None,          # SUPL: see test_torch_cli / test_torch_supl
-    "rtk_rover": None,            # RTK (test_torch_outputs attaches them)
-    "rtk_rover_ntrip": None,
+# the shipped confs, each run whole by the port (where else it is held)
+SHIPPED = {
+    "beidou_b1i": "", "beidou_b3i": "", "galileo_e5a": "", "glonass_l1": "",
+    "glonass_l2": "", "gps_l2c": "", "gps_l5": "", "hybrid_gps_galileo": "",
+    "ppp_static": "PPP: test_torch_outputs attaches it",
+    "gps_l1_notch": "the notch on the receiver's device",
+    "labsat3": "the LabSat 3 source, decimated 8:1",
+    "gps_l1_file": "", "gps_l1_realtime_tpu": "",
+    "gps_l1_supl": "SUPL: see test_torch_cli / test_torch_supl",
+    "rtk_rover": "RTK: test_torch_outputs attaches them",
+    "rtk_rover_ntrip": "",
 }
 
 
 def test_every_conf_is_listed():
-    assert sorted(UNPORTED) == [c.stem for c in CONFS]
+    assert sorted(SHIPPED) == [c.stem for c in CONFS]
 
 
 @pytest.mark.parametrize("conf", CONFS, ids=lambda p: p.stem)
@@ -62,16 +57,8 @@ def test_conf_parses_as_jax(conf):
     tconf = tini.FileConfiguration(conf)
     got = tini.receiver_config_from_ini(tconf)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    refusal = UNPORTED[conf.stem]
-    if refusal is None:
-        treg.check_ported(tconf, got.signal_plan)
-        trx.Receiver(got, device="cpu")
-    elif refusal[0] == "receiver":
-        with pytest.raises(NotImplementedError, match=refusal[1]):
-            trx.Receiver(got, device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match=refusal[1]):
-            treg.check_ported(tconf, got.signal_plan)
+    assert tini.multisource_from_ini(tconf) is None
+    trx.Receiver(got, device="cpu")
 
 
 def _both(text: str):
@@ -96,39 +83,33 @@ def test_registry_errors_match_jax():
 
 
 def test_check_ported_names_role_and_block():
-    # the Kalman tracking block and the SBAS decoder are ported: they bind
-    # as JAX binds them and pass
+    """Every block the JAX registry names binds as JAX binds it and builds
+    a receiver: the Kalman tracking block, the SBAS decoder, every source
+    (the multi-file one, and a hardware front-end with the mock driver,
+    among them) and input filter; a front-end whose driver library is
+    missing fails with JAX's error class and message."""
     for text in ("Tracking_1C.implementation=GPS_L1_CA_KF_Tracking\n",
                  "Channels_1C.count=4\nTelemetryDecoder_1C.implementation="
-                 "SBAS_L1_Telemetry_Decoder\n"):
-        jc, tc = _both(text)
-        cfg = tini.receiver_config_from_ini(tc)
-        assert (dataclasses.asdict(cfg)
-                == dataclasses.asdict(jini.receiver_config_from_ini(jc)))
-        treg.check_ported(tc, cfg.signal_plan)
-    # every source and input filter JAX builds passes, a hardware front-end
-    # with the mock driver among them
-    for text in ("SignalSource.implementation=Custom_UDP_Signal_Source\n",
+                 "SBAS_L1_Telemetry_Decoder\n",
+                 "SignalSource.implementation=Custom_UDP_Signal_Source\n",
                  "SignalSource.implementation=UHD_Signal_Source\n"
                  "SignalSource.driver=mock\n",
-                 "InputFilter.implementation=Beamformer_Filter\n"):
+                 "InputFilter.implementation=Beamformer_Filter\n",
+                 "SignalSource.implementation="
+                 "Multichannel_File_Signal_Source\n"):
         jc, tc = _both(text)
         cfg = tini.receiver_config_from_ini(tc)
         assert (dataclasses.asdict(cfg)
                 == dataclasses.asdict(jini.receiver_config_from_ini(jc)))
-        treg.check_ported(tc, cfg.signal_plan)
-    # the multi-file source (the multi-source receiver) still raises
-    named = "SignalSource.implementation=Multichannel_File_Signal_Source"
-    jc, tc = _both(named + "\n")
-    cfg = tini.receiver_config_from_ini(tc)
-    assert (dataclasses.asdict(cfg)
-            == dataclasses.asdict(jini.receiver_config_from_ini(jc)))
-    with pytest.raises(NotImplementedError, match=named):
-        treg.check_ported(tc, cfg.signal_plan)
-    # and so does a front-end driver other than the mock
-    _, tc = _both("SignalSource.implementation=UHD_Signal_Source\n")
-    with pytest.raises(NotImplementedError, match="driver uhd"):
-        tini.receiver_config_from_ini(tc)
+        trx.Receiver(cfg, device="cpu")
+    for drv in ("uhd", "soapy"):
+        jc, tc = _both("SignalSource.implementation=UHD_Signal_Source\n"
+                       f"SignalSource.driver={drv}\n")
+        with pytest.raises(jreg.UnknownBlockError) as je:
+            jini.receiver_config_from_ini(jc)
+        with pytest.raises(treg.UnknownBlockError) as te:
+            tini.receiver_config_from_ini(tc)
+        assert str(te.value) == str(je.value)
 
 
 def test_binding_details(tmp_path):
@@ -159,9 +140,23 @@ def test_binding_details(tmp_path):
         tini.input_filter_from_ini(tc, device="cpu")
     _, tc = _both("")
     assert tini.multisource_from_ini(tc) is None
-    _, tc = _both("Receiver.sources_count=2\n")
-    with pytest.raises(NotImplementedError, match="Receiver.sources_count=2"):
-        tini.multisource_from_ini(tc)
+    # two sources on two tiny files bind to JAX's branches
+    f0, f1 = tmp_path / "a.ishort", tmp_path / "b.ishort"
+    np.zeros(1000, np.int16).tofile(f0)
+    np.zeros(1000, np.int16).tofile(f1)
+    jc, tc = _both(
+        "Receiver.sources_count=2\nChannels_1C.count=2\n"
+        "Channels_1B.count=2\nChannel2.RF_channel_ID=1\n"
+        + "".join(f"SignalSource{k}.filename={f}\n"
+                  f"SignalSource{k}.item_type=ishort\n"
+                  for k, f in enumerate((f0, f1))))
+    (jb, jbase), (tb, tbase) = (jini.multisource_from_ini(jc),
+                                tini.multisource_from_ini(tc, device="cpu"))
+    assert dataclasses.asdict(tbase) == dataclasses.asdict(jbase)
+    assert [dataclasses.asdict(b.receiver) for b in tb] == \
+        [dataclasses.asdict(b.receiver) for b in jb]
+    assert [(b.source.path, b.source.fs) for b in tb] == \
+        [(b.source.path, b.source.fs) for b in jb]
 
 
 def test_source_from_ini_matches_jax(tmp_path):
@@ -227,10 +222,10 @@ def test_rate_conditioner_block_lengths_match_jax():
 
 
 def test_check_ported_galileo_e1_names():
-    """The Galileo E1 blocks of this receiver (PCPS acquisition, VEML
-    tracking, the E1-B telemetry decoder) pass, and so do the GLONASS and
-    BeiDou B3I blocks; the E1 blocks the port lacks and the other
-    constellations' TCP-connector and Kalman tracking still raise."""
+    """The Galileo E1 blocks (PCPS and 8 ms acquisition, VEML and
+    TCP-connector tracking, the E1-B telemetry decoder), GPS L1's
+    TCP-connector tracking and the GLONASS and BeiDou B3I blocks bind as
+    JAX binds them and build receivers."""
     ok = ("Channels_1B.count=4\n"
           "Acquisition_1B.implementation=Galileo_E1_PCPS_Ambiguous_"
           "Acquisition\n"
@@ -243,22 +238,24 @@ def test_check_ported_galileo_e1_names():
     assert (dataclasses.asdict(cfg)
             == dataclasses.asdict(jini.receiver_config_from_ini(jc)))
     assert cfg.signal == "1B" and cfg.track_pilot
-    treg.check_ported(tc, cfg.signal_plan)
     trx.Receiver(cfg, device="cpu")
-    for text, named in (
+    for text, field, value in (
             ("Channels_1B.count=4\nAcquisition_1B.implementation="
              "Galileo_E1_PCPS_8ms_Ambiguous_Acquisition\n",
-             "Acquisition_1B.implementation=Galileo_E1_PCPS_8ms"),
+             "acq_variant", "e1_8ms"),
             ("Channels_1B.count=4\nTracking_1B.implementation="
-             "Galileo_E1_TCP_CONNECTOR_Tracking\n",
-             "Tracking_1B.implementation=Galileo_E1_TCP_CONNECTOR"),
+             "Galileo_E1_TCP_CONNECTOR_Tracking\nTracking_1B.port_ch0=0\n",
+             "tcp_connector", True),
             ("Channels_1C.count=4\nTracking_1C.implementation="
-             "GPS_L1_CA_TCP_CONNECTOR_Tracking\n",
-             "Tracking_1C.implementation=GPS_L1_CA_TCP_CONNECTOR")):
-        _, tc = _both(text)
+             "GPS_L1_CA_TCP_CONNECTOR_Tracking\nTracking_1C.port_ch0=0\n",
+             "tcp_connector", True)):
+        jc, tc = _both(text)
         cfg = tini.receiver_config_from_ini(tc)
-        with pytest.raises(NotImplementedError, match=named):
-            treg.check_ported(tc, cfg.signal_plan)
+        assert (dataclasses.asdict(cfg)
+                == dataclasses.asdict(jini.receiver_config_from_ini(jc)))
+        rx = trx.Receiver(cfg, device="cpu")
+        assert getattr(rx.groups[0].rx_cfg, field) == value
+        rx.close()
     for text in ("Channels_1G.count=4\nTracking_1G.implementation="
                  "GLONASS_L1_CA_DLL_PLL_Tracking\n",
                  "Channels_1G.count=4\nTelemetryDecoder_1G.implementation="
@@ -269,7 +266,6 @@ def test_check_ported_galileo_e1_names():
                  "BEIDOU_B3I_PCPS_Acquisition\n"):
         _, tc = _both(text)
         cfg = tini.receiver_config_from_ini(tc)
-        treg.check_ported(tc, cfg.signal_plan)
         trx.Receiver(cfg, device="cpu")
 
 
@@ -285,7 +281,6 @@ def test_wideband_confs_bind_and_run():
         got = tini.receiver_config_from_ini(tconf)
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
         assert (got.signal, got.n_channels) == (signal, n_ch)
-        treg.check_ported(tconf, got.signal_plan)
         rx = trx.Receiver(got, device="cpu")
         g, = rx.groups
         assert g.trk_cfg.n_max == (11064 if signal == "L5" else 12064)
@@ -304,17 +299,47 @@ def test_wideband_confs_bind_and_run():
 
 
 def test_acquisition_variants_refused_but_e5a_caf():
-    """acq_variant="e5a_caf" runs; the other variants still raise, naming
-    the field, on GLONASS and B3I too, whose plain PCPS runs."""
+    """Every acq_variant builds a receiver: "e5a_caf" and "e1_8ms" select
+    their engines, and any other name (no block selects one) runs PCPS, as
+    the JAX receiver does, on GLONASS and B3I too. A GPS L1 capture through
+    both packages' receivers with acq_variant="tong": the same handoff
+    record, and the port's records equal those of its own "pcps" run."""
+    from gnss_sdr_tpu import constants as jconst
+    from gnss_sdr_tpu.receiver.receiver import Receiver as JReceiver
+    from gnss_sdr_tpu.receiver.receiver import ReceiverConfig as JConfig
+    from gnss_sdr_tpu.utils import generator
+
     base = dict(fs=12.0e6, n_channels=2, prns=(1, 2))
     trx.Receiver(trx.ReceiverConfig(signal="5X", acq_variant="e5a_caf",
                                     **base), device="cpu")
-    for variant in ("e1_8ms", "quicksync", "cccwsr", "tong", "pcps_8ms"):
-        with pytest.raises(NotImplementedError, match="acq_variant"):
-            trx.Receiver(trx.ReceiverConfig(signal="5X", acq_variant=variant,
-                                            **base), device="cpu")
+    trx.Receiver(trx.ReceiverConfig(signal="1B", acq_variant="e1_8ms",
+                                    **base), device="cpu")
+    for variant in ("quicksync", "cccwsr", "tong", "pcps_8ms"):
+        trx.Receiver(trx.ReceiverConfig(signal="5X", acq_variant=variant,
+                                        **base), device="cpu")
     for signal in ("1G", "2G", "B3"):
-        trx.Receiver(trx.ReceiverConfig(signal=signal, **base), device="cpu")
-        with pytest.raises(NotImplementedError, match="acq_variant"):
-            trx.Receiver(trx.ReceiverConfig(signal=signal, acq_variant="tong",
-                                            **base), device="cpu")
+        trx.Receiver(trx.ReceiverConfig(signal=signal, acq_variant="tong",
+                                        **base), device="cpu")
+    rng = np.random.default_rng(2)
+    bits = 1.0 - 2.0 * rng.integers(0, 2, 20)
+    x = generator.generate(
+        jconst.GPS_L1_CA, [generator.SatParams(
+            prn=7, cn0_dbhz=47.0, doppler_hz=1234.0, code_delay_s=0.0004,
+            data_bits=bits)], 2.0e6, 0.2, seed=11)
+    kw = dict(signal="1C", fs=2.0e6, n_channels=1, prns=(7,), chunk_ms=100)
+    records = {}
+    for name, rx in (
+            ("jax", JReceiver(JConfig(acq_variant="tong", **kw))),
+            ("tong", trx.Receiver(trx.ReceiverConfig(acq_variant="tong",
+                                                     **kw), device="cpu")),
+            ("pcps", trx.Receiver(trx.ReceiverConfig(**kw), device="cpu"))):
+        rx.process(x)
+        ch = rx.groups[0].channels[0]
+        assert (ch.state, ch.prn) == ("tracking", 7), name
+        records[name] = list(ch.records)
+    j, t = records["jax"][0], records["tong"][0]
+    assert (t.abs_start_sample, t.epoch_index, t.code_freq,
+            t.carrier_freq) == (j.abs_start_sample, j.epoch_index,
+                                j.code_freq, j.carrier_freq)
+    assert [dataclasses.astuple(r) for r in records["tong"]] == \
+        [dataclasses.astuple(r) for r in records["pcps"]]

@@ -35,7 +35,7 @@ its frequency slot's IF) in the port against the JAX package, on the CPU:
   ``1C`` / ``2C`` GLONASS observation header, byte for byte with JAX's
   writers (creation clock frozen), and the record read back as JAX reads it;
 - the shipped ``conf/glonass_l1.conf`` and ``conf/glonass_l2.conf`` bind as
-  JAX binds them, pass ``check_ported`` and build receivers whose groups
+  JAX binds them and build receivers whose groups
   place each PRN at its slot.
 
 The whole GLONASS chains (the JAX e2e tests' scenarios) are held on the card
@@ -62,7 +62,6 @@ from gnss_sdr_tpu.receiver import tracking as jtrk
 from gnss_sdr_tpu.receiver.pvt import rinex as jrinex
 from gnss_sdr_tpu_torch import constants
 from gnss_sdr_tpu_torch.config import ini as tini
-from gnss_sdr_tpu_torch.config import registry as treg
 from gnss_sdr_tpu_torch.models import codes as tcodes
 from gnss_sdr_tpu_torch.models.almanac import GlonassAlmanac
 from gnss_sdr_tpu_torch.models.nav import glonass_gnav as tgn
@@ -554,7 +553,6 @@ def test_glonass_conf_binds_and_builds(name, sig, n_ch, fs):
     got = tini.receiver_config_from_ini(tconf)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert (got.signal, got.n_channels, got.fs) == (sig, n_ch, fs)
-    treg.check_ported(tconf, got.signal_plan)
     g, = trx.Receiver(got, device="cpu").groups
     assert g.code_tables.shape == (n_ch, 511)
     step = jconst.SIGNALS[sig].fdma_step_hz

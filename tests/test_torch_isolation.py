@@ -163,3 +163,38 @@ def test_native_source_is_the_port_copy():
     jax_body = (ROOT / "native" / "sampleio.cpp").read_text().split(
         "#include", 1)[1]
     assert body == jax_body
+
+
+# the multi-source slice's modules (the acquisition variants, the
+# multi-source receiver, TCP-connector tracking, the dumps and their
+# readers, the accuracy statistics, the sigma-point filters): the probe
+# above imports each of them
+MULTISOURCE_MODULES = tuple(f"gnss_sdr_tpu_torch.{m}" for m in (
+    "ops.acquisition", "receiver.multisource", "receiver.tcp_tracking",
+    "io.dumps", "utils.dump_tools", "utils.accuracy", "ops.nonlinear_kf",
+    "receiver.pvt.solver", "receiver.observables"))
+
+
+def test_multisource_modules_are_walked():
+    import pkgutil
+
+    import gnss_sdr_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(gnss_sdr_tpu_torch.__path__,
+                                                   "gnss_sdr_tpu_torch.")}
+    assert set(MULTISOURCE_MODULES) <= names, \
+        set(MULTISOURCE_MODULES) - names
+
+
+def test_every_jax_module_has_a_port_but_the_mesh():
+    """Every module of the JAX package has a counterpart at the same
+    relative path, but those that serve only the JAX package (the fixture
+    cache, the XLA cache, K1's Pallas kernel, ported to csrc/correlator.cu)
+    and the multi-device mesh (parallel/*, not ported)."""
+    def rel(pkg):
+        return {p.relative_to(ROOT / pkg).as_posix()
+                for p in (ROOT / pkg).rglob("*.py")}
+    missing = rel("gnss_sdr_tpu") - rel("gnss_sdr_tpu_torch")
+    assert missing == {"utils/fixture_cache.py", "utils/jaxcache.py",
+                       "ops/correlator_pallas.py", "parallel/__init__.py",
+                       "parallel/sharding.py", "parallel/halo.py",
+                       "parallel/distributed.py"}, missing

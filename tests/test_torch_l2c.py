@@ -20,8 +20,8 @@ the CPU:
   and in 137-epoch blocks (its frame search resuming across pushes): the
   same frame anchor, TOW reference, transmit times and ephemeris as JAX's
   decoder;
-- the shipped ``conf/gps_l2c.conf`` binds as JAX binds it, passes
-  ``check_ported`` and builds a receiver.
+- the shipped ``conf/gps_l2c.conf`` binds as JAX binds it and
+  builds a receiver.
 
 The whole L2C chain (58 s of five satellites) is held on the card by
 chip_smoke.py's ``l2c`` phase: the JAX L2C e2e alone takes 11-20 minutes of
@@ -44,7 +44,6 @@ from gnss_sdr_tpu.ops import iq as jiq
 from gnss_sdr_tpu.receiver import telemetry as jtlm
 from gnss_sdr_tpu.receiver import tracking as jtrk
 from gnss_sdr_tpu_torch.config import ini as tini
-from gnss_sdr_tpu_torch.config import registry as treg
 from gnss_sdr_tpu_torch.models import codes as tcodes
 from gnss_sdr_tpu_torch.ops import acquisition as tacq
 from gnss_sdr_tpu_torch.ops import tracking_kernel as tk
@@ -273,6 +272,5 @@ def test_l2c_conf_binds_and_builds():
     got = tini.receiver_config_from_ini(tconf)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert (got.signal, got.n_channels, got.fs) == ("2S", 6, 2.0e6)
-    treg.check_ported(tconf, got.signal_plan)
     g, = trx.Receiver(got, device="cpu").groups
     assert g.code_tables.shape == (6, 10230)

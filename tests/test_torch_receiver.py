@@ -33,10 +33,11 @@ def test_port_scenario_matches_reference():
         np.testing.assert_array_equal(sa.data_bits, sb.data_bits)
 
 
-def test_receiver_refuses_unported_fields():
+def test_receiver_refuses_unported_fields(tmp_path):
     """Every signal of the JAX package is ported: GLONASS alone and in a
-    plan with GPS L1 builds, a GLONASS group at its slots; so is the
-    Kalman carrier loop; the fields that select what is not ported still
+    plan with GPS L1 builds, a GLONASS group at its slots; so are the
+    Kalman carrier loop, the TCP-connector tracking, the E1 8 ms
+    acquisition and the dumps; only channels sharded over several devices
     raise, naming the field."""
     rx = Receiver(ReceiverConfig(signal="1G", fs=8e6), device="cpu")
     assert rx.groups[0].if_freq_for(10) == -7 * 562500.0
@@ -46,11 +47,15 @@ def test_receiver_refuses_unported_fields():
     assert rx.groups[0].if_freq_for(10) == 0.0
     rx = Receiver(ReceiverConfig(fs=2e6, carrier_kf=True), device="cpu")
     assert rx.groups[0].trk_cfg.carrier_kf
-    for field, value in [("tcp_connector", True),
-                         ("acq_variant", "e1_8ms"), ("dump_dir", "x"),
-                         ("n_mesh_devices", 8)]:
-        with pytest.raises(NotImplementedError, match=field):
-            Receiver(ReceiverConfig(**{field: value}), device="cpu")
+    for field, value in [("tcp_connector", True), ("acq_variant", "e1_8ms"),
+                         ("dump_dir", str(tmp_path))]:
+        rx = Receiver(ReceiverConfig(signal="1B" if value == "e1_8ms"
+                                     else "1C", fs=4e6, tcp_port_ch0=0,
+                                     **{field: value}), device="cpu")
+        assert getattr(rx.cfg, field) == value
+        rx.close()
+    with pytest.raises(NotImplementedError, match="n_mesh_devices"):
+        Receiver(ReceiverConfig(n_mesh_devices=8), device="cpu")
 
 
 def test_receiver_default_device_needs_a_card():

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from gnss_sdr_tpu.config import ini as jini
+from gnss_sdr_tpu.config import registry as jreg
 from gnss_sdr_tpu.io import ref_xml as jxml
 from gnss_sdr_tpu.io import rf_driver as jrf
 from gnss_sdr_tpu.io import sources as jsrc
@@ -332,7 +333,6 @@ def test_mock_rf_driver_matches_jax(tmp_path):
     assert len(got) == 5000
     # the conf passes the registry with the mock driver
     cfg = tini.receiver_config_from_ini(tc)
-    treg.check_ported(tc, cfg.signal_plan)
 
 
 def test_mock_rf_driver_refusals_match_jax():
@@ -348,12 +348,20 @@ def test_mock_rf_driver_refusals_match_jax():
             mod.make_driver("uhd")
         with pytest.raises(ValueError, match="unknown RF driver"):
             mod.make_driver("nope")
-    # every other driver stays unported in the port, by name
-    _, tc = _uhd({"SignalSource.driver": "uhd"})
-    with pytest.raises(NotImplementedError, match="driver uhd"):
+    # a driver whose vendor library is missing fails as in JAX: the
+    # source with the loader's ImportError, the binding with
+    # UnknownBlockError, the same messages
+    jc, tc = _uhd({"SignalSource.driver": "uhd"})
+    with pytest.raises(ImportError) as je:
+        jini.source_from_ini(jc)
+    with pytest.raises(ImportError) as te:
         tini.source_from_ini(tc)
-    with pytest.raises(NotImplementedError, match="driver uhd"):
+    assert str(te.value) == str(je.value)
+    with pytest.raises(jreg.UnknownBlockError) as je:
+        jini.receiver_config_from_ini(jc)
+    with pytest.raises(treg.UnknownBlockError) as te:
         tini.receiver_config_from_ini(tc)
+    assert str(te.value) == str(je.value)
 
 
 # -------------------------------------------------------- reference XML
